@@ -1,0 +1,10 @@
+"""stablelm-12b [dense]: 40L d_model=5120 32H (GQA kv=8) d_ff=13824
+vocab=100352. [hf:stabilityai/stablelm-2-1_6b; hf]"""
+from repro_torch.configs.base import AttnCfg, ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b", family="dense",
+    num_layers=40, d_model=5120, d_ff=13824, vocab_size=100352,
+    attn=AttnCfg(num_heads=32, num_kv_heads=8, head_dim=160),
+    source="hf:stabilityai/stablelm-2-1_6b",
+)
