@@ -112,3 +112,101 @@ def verify_block(x: torch.Tensor, checks: Checksums, stride: int, *,
     fresh = encode_kv(x.float(), stride)
     bad = block_fold_bad(fresh, checks, threshold=threshold)
     return bad, bad.sum(dtype=torch.int32)
+
+
+def foldprod(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """Strided product fold along the last dim — the EXP identity
+    ``exp(fold1(S) - g*m) == prod_l exp(S[..., j+s*l] - m)`` (Alg.1 l.13)."""
+    g = _check_fold(x.shape[-1], stride)
+    return x.reshape(*x.shape[:-1], g, stride).prod(dim=-2)
+
+
+def encode_cols(x: torch.Tensor, stride: int) -> Checksums:
+    """Checksums of V (..., Bc, d) folded along its *feature* axis: returns
+    (..., Bc, stride) such that ``P @ c1 == fold1(P @ V)``. f32
+    accumulation, one rounding to ``x``'s dtype."""
+    xf = x.float()
+    return Checksums(fold1(xf, stride).to(x.dtype),
+                     fold2(xf, stride).to(x.dtype))
+
+
+class Verdict(NamedTuple):
+    """Outcome of a checksum verification over one tensor. On a batched
+    tensor ``n_detected`` is per leading (batch) row."""
+
+    corrected: torch.Tensor   # the (possibly) corrected tensor
+    n_detected: torch.Tensor  # int32: # of (row, fold-col) mismatches
+    max_delta: torch.Tensor   # f32 scalar: largest |checksum - fold|
+
+
+def verify_and_correct(x: torch.Tensor, checks: Checksums, stride: int, *,
+                       threshold: float, correct: bool = True,
+                       batch_dims: int = 0) -> Verdict:
+    """Detect + locate + correct single errors per (row, fold column).
+
+    ``x``: (..., W); ``checks.c1/c2``: predicted folds (..., stride). An
+    error ``delta`` at ``x[..., j + s*l]`` shows as ``c1 - fold1 = -delta``
+    at fold column j, and ``(c2 - fold2) / (c1 - fold1) = l + 1`` locates
+    the segment; correction adds the delta back (paper §4.1). The relative
+    threshold is floored at the mean |c1|, taken over everything after the
+    first ``batch_dims`` dims: with ``batch_dims=1`` each batch row is
+    verified on its own, exactly as the JAX package's function vmapped over
+    that axis, and ``n_detected`` is per row.
+    """
+    g = _check_fold(x.shape[-1], stride)
+    xf = x.float()
+    d1 = checks.c1.float() - fold1(xf, stride)
+    d2 = checks.c2.float() - fold2(xf, stride)
+    c1f = checks.c1.float().abs()
+    red = tuple(range(batch_dims, c1f.dim()))
+    floor = torch.clamp(c1f.mean(dim=red, keepdim=True), min=1e-6)
+    # negated-<= form: a NaN/inf delta counts as detected
+    bad = ~(d1.abs() <= threshold * torch.maximum(c1f, floor))
+    n_detected = bad.flatten(batch_dims).sum(-1, dtype=torch.int32)
+    max_delta = (d1.abs().max() if d1.numel()
+                 else torch.zeros((), device=x.device))
+    if not correct:
+        return Verdict(x, n_detected, max_delta)
+    # segment l* = round(d2 / d1) - 1, clamped to [0, g - 1]
+    safe = torch.where(bad, d1, torch.ones_like(d1))
+    l_star = torch.clamp(torch.round(d2 / safe) - 1, 0, g - 1).long()
+    seg = torch.arange(g, device=x.device)
+    onehot = (seg[:, None] == l_star[..., None, :]).float()
+    patch = onehot * (d1 * bad)[..., None, :]
+    fixed = xf.reshape(*xf.shape[:-1], g, stride) + patch
+    return Verdict(fixed.reshape(x.shape).to(x.dtype), n_detected, max_delta)
+
+
+# f32 exp() leaves the normal range below log(2^-126) ~= -87.3; entries
+# deeper than this floor have no faithful log-domain image in P and are
+# excluded from the log check (they are <= 1e-38 attention weights)
+LOG_PROD_FLOOR = -87.0
+
+
+def verify_product_log(p: torch.Tensor, log_check1: torch.Tensor,
+                       stride: int, *, threshold: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Log-domain EXP-stage verification: ``fold1(log P) == S_check1 -
+    g*m`` stays exact down to the f32 normal-range floor, where the linear
+    product check goes blind once one segment underflows. The threshold is
+    absolute in nats relative to ``max(|check|, 1)``; NaN (a sign-bit flip
+    makes ``log`` NaN) counts as detected. Returns (bad (..., stride),
+    total count)."""
+    logp = torch.log(p.float())               # -inf for 0, nan for < 0
+    logp = torch.maximum(logp, torch.full_like(logp, LOG_PROD_FLOOR))
+    chk = log_check1.float()
+    ref = torch.clamp(chk.abs(), min=1.0)
+    bad = ~((fold1(logp, stride) - chk).abs() <= threshold * ref)
+    return bad, bad.sum(dtype=torch.int32)
+
+
+def verify_product(p: torch.Tensor, p_check1: torch.Tensor, stride: int, *,
+                   threshold: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """EXP-stage verification (Alg.1 line 13): the strided product of
+    ``P = exp(S - m)`` against ``exp(S_check1 - g*m)``, relative, with a
+    1e-20 floor. Returns (bad (..., stride), total count)."""
+    floor = 1e-20
+    chk = p_check1.float()
+    ref = torch.clamp(chk.abs(), min=floor)
+    bad = (foldprod(p.float(), stride) - chk).abs() > threshold * ref + floor
+    return bad, bad.sum(dtype=torch.int32)

@@ -19,7 +19,7 @@ JAX package's integer values: they index the 6-site telemetry vectors
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,3 +81,59 @@ def flip_bit_at(x: torch.Tensor, flat_index: int, bit: int) -> torch.Tensor:
     mask = -(1 << (nbits - 1)) if bit == nbits - 1 else (1 << bit)
     iv[int(flat_index)] ^= mask
     return x
+
+
+def _matching(fault: FaultSpec, site: Site, block_index: int):
+    """(coordinates, bit) of every entry of ``fault`` that strikes ``site``
+    at KV block ``block_index``. A (n_faults,) spec addresses the batch by
+    its ``batch`` field; a per-slot (n_slots, n_faults) spec holds
+    row-relative coordinates, so row ``b``'s entries strike batch row ``b``
+    (the JAX package vmaps its decode per slot, where the batch coordinate
+    clamps to the slot's own row)."""
+    f = [np.asarray(a) for a in fault]
+    hit = (f[0] == int(site)) & (f[1] == block_index)
+    for idx in zip(*np.nonzero(hit)):
+        batch = int(f[2][idx]) if f[0].ndim == 1 else int(idx[0])
+        yield ([batch, int(f[3][idx]), int(f[4][idx]), int(f[5][idx])],
+               int(f[6][idx]))
+
+
+def inject(x: torch.Tensor, fault: Optional[FaultSpec], site: Site,
+           block_index: int = 0) -> torch.Tensor:
+    """Apply every matching fault in ``fault`` to ``x`` (indexed as (batch,
+    head, row[, col]); the vector sites ROWMAX/ROWSUM ignore ``col``).
+    Out-of-range coordinates and bits are clamped (still a valid SEU), as
+    in the JAX package. Returns a new tensor when anything flips, else
+    ``x`` itself."""
+    if fault is None:
+        return x
+    for coords, bit in _matching(fault, site, int(block_index)):
+        x = _flip_one(x.clone(), coords, bit)
+    return x
+
+
+def _flip_one(x: torch.Tensor, coords, bit: int) -> torch.Tensor:
+    """Flip ``bit`` of the element of ``x`` at the leading ``coords``
+    (clamped into range), in place."""
+    flat = 0
+    for dim, c in zip(x.shape, coords):
+        flat = flat * dim + min(max(int(c), 0), dim - 1)
+    for dim in x.shape[len(coords):]:
+        flat *= dim
+    return flip_bit_at(x, flat, bit)
+
+
+def random_fault(rng: np.random.Generator, *, sites, shape_bhsc,
+                 n_blocks: int, max_bit: int = 31) -> FaultSpec:
+    """Sample a uniform random single fault (host-side, for campaigns)."""
+    b, h, s, c = shape_bhsc
+    site = int(rng.choice([int(x) for x in sites]))
+    return FaultSpec.single(
+        Site(site),
+        block=int(rng.integers(0, max(n_blocks, 1))),
+        batch=int(rng.integers(0, b)),
+        head=int(rng.integers(0, h)),
+        row=int(rng.integers(0, s)),
+        col=int(rng.integers(0, c)),
+        bit=int(rng.integers(0, max_bit + 1)),
+    )

@@ -81,12 +81,13 @@ def build(name: str, extra: Sequence[str] = ()) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if it is
-    missing or older than its source."""
+    missing or older than its source or a shared ``csrc/*.cuh`` header."""
     if name in _loaded:
         return _loaded[name]
     lib = library_path(name)
-    src = CSRC / f"{name}.cu"
-    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+    newest = max(p.stat().st_mtime
+                 for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    if not lib.exists() or lib.stat().st_mtime < newest:
         build(name)
     _loaded[name] = ctypes.CDLL(str(lib))
     return _loaded[name]

@@ -1,11 +1,29 @@
-"""Plain PyTorch versions of the EFTA tile helpers that the fused kernels
-share (the JAX package keeps them in ``kernels/efta_attention.py``). In the
-CUDA kernel each of them is a device loop of ``csrc/efta_paged.cu``; here
-they act on tiles with any number of leading batch dimensions, folding the
-last dimension."""
+"""What the two fused EFTA kernels' wrappers share: the plain PyTorch
+versions of the EFTA tile helpers (the JAX package keeps them in
+``kernels/efta_attention.py``; in CUDA each is a device loop of
+``csrc/efta_paged.cu`` / ``csrc/efta_attention.cu``), which act on tiles
+with any number of leading batch dimensions, folding the last dimension,
+and the codes both C entry points take."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+NO_WINDOW = 1 << 30     # "global attention" sentinel for the window scalar
+MODES = {"off": 0, "detect": 1, "correct": 2}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def as_descriptor(fault) -> list:
+    """An int32[8] fault descriptor (None = no fault) as 8 Python ints."""
+    if fault is None:
+        return [0] * 8
+    if isinstance(fault, torch.Tensor):
+        fault = fault.tolist()
+    desc = [int(x) for x in np.asarray(fault).reshape(-1)]
+    if len(desc) != 8:
+        raise ValueError("fault descriptor must hold 8 ints")
+    return desc
 
 
 def _bitmask(bit: int) -> int:

@@ -39,19 +39,17 @@
 //     rounds p to T first, as the reference does (p.astype(v.dtype)); the
 //     O checksums use the unrounded f32 p.
 //   * Shadow computations stay redundant: the shadow rowmax and the shadow
-//     rowsum read their inputs through an empty `asm volatile` that hides
-//     the value from the optimizer, so nvcc cannot merge the shadow with
-//     its primary. Both keep the primary's order of operations, so a
-//     corrected value equals the clean value bit for bit.
+//     rowsum read their inputs through opaque() (efta_common.cuh), so nvcc
+//     cannot merge the shadow with its primary. Both keep the primary's
+//     order of operations, so a corrected value equals the clean value bit
+//     for bit.
 //   * Built with -fmad=false: the reference's elementwise multiply-adds
 //     round twice, and so do the ones here; dot products use explicit fmaf.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "efta_common.cuh"
 
 namespace {
 
@@ -59,10 +57,6 @@ constexpr int TILE_ROWS = 32;
 constexpr int NT = 128;  // threads per block
 constexpr int P_SITE = 0, P_BLOCK = 1, P_B = 2, P_H = 3, P_ROW = 4,
               P_COL = 5, P_BIT = 6, P_ON = 7;
-constexpr int S_GEMM1 = 0, S_ROWMAX = 1, S_EXP = 2, S_ROWSUM = 3,
-              S_GEMM2 = 4;
-// MASK_VALUE = -0.7 * finfo(f32).max, formed in double as Python does
-constexpr double MASK_D = -0.7 * 3.4028234663852886e+38;
 
 struct Params {
   const void* q;
@@ -84,80 +78,6 @@ struct Params {
   int fault[8];
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float flip_bit(float x, int bit) {
-  if (bit < 0 || bit > 31) return x;
-  return __int_as_float(__float_as_int(x) ^ (int)(1u << bit));
-}
-
-// maximum / minimum that propagate NaN, as jnp.maximum / torch.maximum
-// do (fmaxf / fminf return the other operand instead)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
-  return fmaxf(a, b);
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
-  return fminf(a, b);
-}
-
-__device__ __forceinline__ float opaque(float x) {
-  asm volatile("" : "+f"(x));
-  return x;
-}
-
-// Block-wide reductions in a fixed order (deterministic). Every thread of
-// the block must call them; `red` holds NT / 32 floats.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int w = threadIdx.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[w] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int i = 0; i < NT / 32; ++i) t += red[i];
-  return t;
-}
-
-__device__ float block_max_nan(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int w = threadIdx.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[w] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int i = 1; i < NT / 32; ++i) t = nan_max(t, red[i]);
-  return t;
-}
-
-__device__ int block_sum_int(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int w = threadIdx.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[w] = v;
-  __syncthreads();
-  int t = 0;
-  for (int i = 0; i < NT / 32; ++i) t += red[i];
-  return t;
-}
-
 // checksum.block_fold_bad(encode_kv_tile(x, cs), stored): x is the (bs, D)
 // tile in shared memory (row stride ld); stored planes are (cs, D) in T.
 template <typename T>
@@ -169,8 +89,8 @@ __device__ bool block_fold_bad(const float* x, int ld, const T* c1g,
     a1 += fabsf(to_f(c1g[e]));
     a2 += fabsf(to_f(c2g[e]));
   }
-  a1 = block_sum(a1, red);
-  a2 = block_sum(a2, red);
+  a1 = block_sum<NT>(a1, red);
+  a2 = block_sum<NT>(a2, red);
   const float n = (float)(cs * D);
   const float floor1 = nan_max(a1 / n, 1e-6f);
   const float floor2 = nan_max(a2 / n, 1e-6f);
@@ -189,13 +109,6 @@ __device__ bool block_fold_bad(const float* x, int ld, const T* c1g,
     ok = ok && (fabsf(c2 - f2) <= thr * nan_max(fabsf(c2), floor2));
   }
   return __syncthreads_or(!ok) != 0;
-}
-
-__device__ __forceinline__ int seg_of(float d1, float d2, int g) {
-  // _correct_strided: l* = clip(round(d2 / d1) - 1, 0, g - 1)
-  float t = rintf(d2 / d1) - 1.f;
-  t = fminf(fmaxf(t, 0.f), (float)(g - 1));
-  return (int)t;
 }
 
 size_t smem_floats(int D, int bs, int s_kv, int s_out) {
@@ -320,7 +233,7 @@ __global__ void __launch_bounds__(NT) efta_paged_kernel(const Params P) {
         const int c = e / D, d = e - c * D;
         vm = nan_max(vm, fabsf(vs[c * ld + d]));
       }
-      vmax = nan_max(vmax, block_max_nan(vm, red));
+      vmax = nan_max(vmax, block_max_nan<NT>(vm, red));
       // tensor checksums of K at the ABFT stride
       for (int e = tid; e < skv * D; e += NT) {
         const int i = e / D, d = e - i * D;
@@ -589,7 +502,7 @@ __global__ void __launch_bounds__(NT) efta_paged_kernel(const Params P) {
   }
   int* rep = P.rep + (bh * P.n_tiles + tile) * 6;
   for (int k = 0; k < 6; ++k) {
-    const int t = block_sum_int(det[k], (int*)red);
+    const int t = block_sum_int<NT>(det[k], (int*)red);
     if (tid == 0) rep[k] = t;
   }
 }

@@ -36,16 +36,14 @@ from repro_torch.core import checksum as cks
 from repro_torch.core.efta import MASK_VALUE, EFTAConfig
 from repro_torch.core.fault import Site
 from repro_torch.kernels import _build
-from repro_torch.kernels._efta_common import (_correct_strided, _flip,
-                                              _fold_prod, _fold_slices)
+from repro_torch.kernels._efta_common import (DTYPES, MODES, NO_WINDOW,
+                                              _correct_strided, _flip,
+                                              _fold_prod, _fold_slices,
+                                              as_descriptor)
 
 # fault descriptor layout (int32[8]):
 # [site, table_block, batch, kv_head, tile_row, col, bit, enabled]
 P_SITE, P_BLOCK, P_B, P_H, P_ROW, P_COL, P_BIT, P_ON = range(8)
-
-NO_WINDOW = 1 << 30     # "global attention" sentinel for the window scalar
-
-_MODES = {"off": 0, "detect": 1, "correct": 2}
 
 
 class PagedReport(NamedTuple):
@@ -101,20 +99,12 @@ def _prepare(q, k_pool, k_checks, block_tables, kv_lens, q_lens, *, cfg,
         raise ValueError("block_tables / kv_lens do not match the batch")
     if q_lens is None:
         q_lens = torch.full((b,), chunk, dtype=torch.int32, device=q.device)
-    if fault is None:
-        fault = [0] * 8
-    elif isinstance(fault, torch.Tensor):
-        fault = [int(x) for x in fault.tolist()]
-    else:
-        fault = [int(x) for x in np.asarray(fault).reshape(-1)]
-    if len(fault) != 8:
-        raise ValueError("fault descriptor must hold 8 ints")
     return _Call(
         squeeze=squeeze,
         qr=q.reshape(b, hkv, (h // hkv) * chunk, d),
         heads=h, chunk=chunk, q_lens=q_lens,
         window=NO_WINDOW if window is None else _as_int(window),
-        fault=fault,
+        fault=as_descriptor(fault),
         scale=sm_scale if sm_scale is not None else 1.0 / (d ** 0.5),
         s_kv=s_kv, s_out=s_out, eps=cfg.thresholds(q.dtype),
         kv_thr=(check_threshold if check_threshold is not None
@@ -417,7 +407,6 @@ _ARGTYPES = ([ctypes.c_int]                        # dtype code
              + [ctypes.c_int] * 4                  # mode unified shadows
              + [ctypes.c_int] * 8                  # fault descriptor
              + [ctypes.c_void_p])                  # stream
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib():
@@ -438,7 +427,7 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     qr = call.qr.contiguous()
     dev = qr.device
     dtype = qr.dtype
-    if dtype not in _DTYPES:
+    if dtype not in DTYPES:
         raise TypeError(f"efta_paged kernel takes float32 or bfloat16, "
                         f"got {dtype}")
     planes = (k_pool, v_pool, k_checks.c1, k_checks.c2, v_checks.c1,
@@ -452,7 +441,7 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     if k_checks.c1.shape[:2] != k_pool.shape[:2] \
             or v_pool.shape != k_pool.shape:
         raise ValueError("pool / checksum plane shapes disagree")
-    if cfg.mode not in _MODES:
+    if cfg.mode not in MODES:
         raise ValueError(f"unknown EFTA mode {cfg.mode!r}")
     B, hkv, R, D = qr.shape
     _, _, bs, _ = k_pool.shape
@@ -468,12 +457,12 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     eps1, eps2, eps3 = call.eps
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.efta_paged_launch(
-        _DTYPES[dtype], qr.data_ptr(), *(t.data_ptr() for t in planes),
+        DTYPES[dtype], qr.data_ptr(), *(t.data_ptr() for t in planes),
         *(t.data_ptr() for t in ints),
         out.data_ptr(), rep.data_ptr(), bad.data_ptr(),
         B, hkv, R, call.chunk, D, bs, cs, mb, call.s_kv, call.s_out,
         call.window, call.scale, call.kv_thr, eps1, eps2, eps3,
-        _MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
+        MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
         int(cfg.shadow_rowmax), *call.fault, stream)
     if rc != 0:
         msg = lib.efta_paged_error_string(rc).decode()

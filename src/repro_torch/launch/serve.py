@@ -1,5 +1,9 @@
-"""Serving launcher: the fused paged serve engine of ``repro_torch``.
+"""Serving launcher of ``repro_torch``: the ring-cache serve engine by
+default, the checksummed paged engine with ``--paged``.
 
+  python -m repro_torch.launch.serve --arch gpt2 --attn-impl efta_pallas
+  python -m repro_torch.launch.serve --arch gpt2-smoke --device cpu \\
+      --requests 4 --slots 2 --gen 6 --inject-faults 2 --ft-mode detect
   python -m repro_torch.launch.serve --arch gpt2 --paged --kernel fused
   python -m repro_torch.launch.serve --arch gpt2-smoke --paged --kernel fused \\
       --device cpu --requests 4 --slots 2 --gen 6 --inject-faults 2 --kv-flips 1
@@ -20,7 +24,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.fault import FaultSpec, Site
 from repro_torch.models import build_model
-from repro_torch.serve import PagedServeEngine, SamplingParams, batch_faults
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.serve import (PagedServeEngine, SamplingParams, ServeEngine,
+                               batch_faults)
 
 
 def main(argv=None):
@@ -29,7 +35,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--paged", action="store_true",
                     help="serve from the checksummed paged KV block pool "
-                         "(the only engine this package has so far)")
+                         "(default: per-slot ring KV caches)")
+    ap.add_argument("--attn-impl", choices=IMPLS, default=None,
+                    help="override the config's attention implementation "
+                         "(ring engine; efta_pallas = the fused kernel)")
     ap.add_argument("--kernel", choices=("fused",), default="fused")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -49,13 +58,13 @@ def main(argv=None):
                     help="number of steps hit by a random compute-site SEU")
     ap.add_argument("--kv-flips", type=int, default=0,
                     help="random resident KV-block bit flips injected "
-                         "between steps")
+                         "between steps (paged engine)")
     ap.add_argument("--ft-mode", default=None,
                     help="override the config's EFTA mode (off/detect/correct)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("repro_torch serves through the paged engine; add --paged")
+    if args.kv_flips and not args.paged:
+        ap.error("--kv-flips strikes the paged block pool; add --paged")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("repro_torch.serve")
 
@@ -63,18 +72,25 @@ def main(argv=None):
     if args.ft_mode:
         cfg = dataclasses.replace(
             cfg, ft=dataclasses.replace(cfg.ft, mode=args.ft_mode))
+    if args.attn_impl:
+        cfg = dataclasses.replace(
+            cfg, ft=dataclasses.replace(cfg.ft, attn_impl=args.attn_impl))
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     params = model.init(gen)
     rng = np.random.default_rng(args.seed)
-    eng = PagedServeEngine(model, params, n_slots=args.slots,
-                           cache_len=args.cache_len or None,
-                           block_size=args.block_size,
-                           num_blocks=args.num_blocks or None,
-                           chunk_size=args.chunk_size or None,
-                           chunk_budget=args.chunk_budget or None,
-                           kernel=args.kernel)
+    if args.paged:
+        eng = PagedServeEngine(model, params, n_slots=args.slots,
+                               cache_len=args.cache_len or None,
+                               block_size=args.block_size,
+                               num_blocks=args.num_blocks or None,
+                               chunk_size=args.chunk_size or None,
+                               chunk_budget=args.chunk_budget or None,
+                               kernel=args.kernel)
+    else:
+        eng = ServeEngine(model, params, n_slots=args.slots,
+                          cache_len=args.cache_len or None)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, seed=args.seed)
     for _ in range(args.requests):
@@ -98,7 +114,7 @@ def main(argv=None):
     i, flips_left = 0, args.kv_flips
     while eng.scheduler.has_work:
         live = [r for r in eng.scheduler.active_rows()
-                if not r.is_done() and eng._pos[r.slot] > 0]
+                if args.paged and not r.is_done() and eng._pos[r.slot] > 0]
         if live and flips_left and rng.integers(0, 2):
             req = live[int(rng.integers(0, len(live)))]
             j = int(rng.integers(0, len(req.block_ids)))
@@ -125,12 +141,18 @@ def main(argv=None):
     summ = eng.telemetry.summary()
     log.info("EFTA telemetry: detected=%d retries=%d status=%s",
              summ["detected"], summ["retries"], summ["status"])
-    ps, xs = eng.paged_stats, eng.pool.prefix.stats
-    log.info("paged cache: prefix hits=%d/%d tokens, kv detected=%d "
-             "repaired=%d preemptions=%d chunked-prefill tokens=%d "
-             "chunk widths=%s", xs.hit_tokens, xs.lookup_tokens,
-             ps.kv_detected_blocks, ps.kv_repaired_blocks, ps.preemptions,
-             ps.chunked_prefill_tokens, sorted(eng.chunk_widths))
+    if args.paged:
+        ps, xs = eng.paged_stats, eng.pool.prefix.stats
+        log.info("paged cache: prefix hits=%d/%d tokens, kv detected=%d "
+                 "repaired=%d preemptions=%d chunked-prefill tokens=%d "
+                 "chunk widths=%s", xs.hit_tokens, xs.lookup_tokens,
+                 ps.kv_detected_blocks, ps.kv_repaired_blocks,
+                 ps.preemptions, ps.chunked_prefill_tokens,
+                 sorted(eng.chunk_widths))
+    else:
+        log.info("ring cache: %d prefills (%d prompt forwards), attention "
+                 "%s", eng.stats.prefills, eng.stats.prefill_forwards,
+                 cfg.ft.attn_impl)
     print({rid: outs[rid].tolist() for rid in sorted(outs)})
 
 

@@ -1,9 +1,19 @@
-"""Attention over the paged, checksummed KV block pool.
+"""Attention block: GQA/MQA + RoPE + sliding window, with the paper's EFTA
+as the attention implementation, over three kinds of KV:
 
-The serving step attends through the fused paged EFTA kernel
-(:func:`repro_torch.kernels.efta_paged.efta_paged_attention`). The
-contiguous-cache attention paths of the JAX package (training, the ring
-cache) are not ported yet.
+  * none — the full sequence attends to itself (training forward, logits);
+  * a ring :class:`KVCache` per slot (``slot = position % cache_len``):
+    prefill attends within the prompt, decode over the valid region of the
+    ring, with each slot's absolute position reconstructed so causal and
+    sliding-window masks stay exact after wraparound;
+  * the paged, checksummed :class:`PagedKVCache` of the paged serve engine,
+    through the fused paged kernel.
+
+Contiguous attention dispatches through :func:`repro_torch.kernels.ops.
+attention` on ``FTCfg.attn_impl``; ``efta_pallas`` (the fused contiguous
+kernel) serves the full sequence and ring prefill, and ring decode sends it
+to plain-PyTorch ``efta`` with the reconstructed ``kv_positions``, as the
+JAX package does.
 """
 from __future__ import annotations
 
@@ -16,7 +26,37 @@ from repro_torch.configs.base import AttnCfg, FTCfg
 from repro_torch.core import checksum as cks
 from repro_torch.core.efta import EFTAConfig, FTReport
 from repro_torch.kernels.efta_paged import efta_paged_attention
+from repro_torch.kernels.ops import attention as attention_op
 from repro_torch.models.layers import dense_init, matmul, rope
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-slot ring KV caches, stacked over layers: ``k``/``v`` (L, B,
+    Hkv, cache_len, hd); ``pos`` (B,) int32 tokens seen so far by each row
+    (every layer shares it). Keys are cached post-RoPE, so ring wraparound
+    needs no re-rotation. :meth:`layer` gives one layer's view (4-D k/v).
+    The forward writes K/V in place and returns the advanced ``pos`` in a
+    new cache, so a step that is retried rewrites the same slots and
+    commits nothing until the caller keeps its result. (Cross-attention
+    memory, which the JAX package's cache also carries, belongs to the
+    families not ported yet.)"""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+    def layer(self, i: int) -> "KVCache":
+        return dataclasses.replace(self, k=self.k[i], v=self.v[i])
+
+
+def init_cache(batch: int, a: AttnCfg, *, cache_len: int, dtype, device,
+               num_layers: int = 1) -> KVCache:
+    shape = (num_layers, batch, a.num_kv_heads, cache_len, a.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((batch,), dtype=torch.int32,
+                                   device=device))
 
 
 @dataclasses.dataclass
@@ -172,19 +212,45 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def _ring_decode(q, k, v, cache: KVCache, positions, *, impl, cfg, window,
+                 sm_scale, fault):
+    """Append rows at ``positions`` (B, S) into one layer's ring cache (in
+    place) and attend over its valid region, each row from its own
+    reconstructed absolute positions."""
+    cache_len = cache.k.shape[2]
+    dev = q.device
+    slots = positions % cache_len                              # (B, S)
+    rows = torch.arange(q.shape[0], device=dev)[:, None]
+    cache.k[rows, :, slots, :] = k.transpose(1, 2).to(cache.k.dtype)
+    cache.v[rows, :, slots, :] = v.transpose(1, 2).to(cache.v.dtype)
+    new_pos = positions[:, -1:] + 1                            # (B, 1)
+    slot_idx = torch.arange(cache_len, device=dev)[None, :]
+    last_written = new_pos - 1 - ((new_pos - 1 - slot_idx) % cache_len)
+    kv_positions = torch.where(last_written >= 0, last_written, -1)
+    return attention_op(
+        q, cache.k, cache.v, impl="efta" if impl == "efta_pallas" else impl,
+        cfg=cfg, causal=True, window=window, q_offset=positions[:, 0],
+        kv_positions=kv_positions, sm_scale=sm_scale, fault=fault)
+
+
 def attn_apply(params, x: torch.Tensor, *, acfg: AttnCfg, ft: FTCfg,
                window: Optional[int], positions: torch.Tensor,
-               cache: PagedKVCache, mode: str = "decode", fault=None):
-    """Self-attention of one layer over the paged cache. ``x``: (B, S,
-    d_model); ``positions``: (B, S) per request. Returns (y, FTReport,
-    bad plane)."""
-    if not isinstance(cache, PagedKVCache) or mode != "decode":
-        raise NotImplementedError(
-            "repro_torch ports the paged serving step (PagedKVCache, "
-            "mode='decode'); contiguous-cache and training attention come "
-            "in a later slice")
+               cache=None, mode: str = "train", fault=None):
+    """Self-attention of one layer. ``x``: (B, S, d_model); ``positions``:
+    (B, S) absolute positions. ``cache``: None (full sequence), one layer's
+    :class:`KVCache` (``mode`` "prefill" attends within the prompt and
+    fills the ring; "decode" appends and attends over the ring) or one
+    layer's :class:`PagedKVCache` (``mode`` "decode", the unified paged
+    step). ``fault``: a :class:`~repro_torch.core.fault.FaultSpec` on the
+    contiguous paths, the paged kernel's int32[8] descriptor on the paged
+    one. Returns (y, FTReport with (B, 5) counts, bad plane or None)."""
     if ft.ff_abft:
         raise NotImplementedError("ff_abft projections come in a later slice")
+    paged = isinstance(cache, PagedKVCache)
+    if paged and mode != "decode":
+        raise NotImplementedError(
+            "PagedKVCache attention is the unified batched decode/extend "
+            "step; prefill has no paged cache")
     hd, h, hkv = acfg.head_dim, acfg.num_heads, acfg.num_kv_heads
     q = _split_heads(matmul(x, params["wq"]), h, hd)
     k = _split_heads(matmul(x, params["wk"]), hkv, hd)
@@ -192,7 +258,22 @@ def attn_apply(params, x: torch.Tensor, *, acfg: AttnCfg, ft: FTCfg,
     if acfg.pos == "rope":
         q = rope(q.transpose(1, 2), positions, acfg.rope_theta).transpose(1, 2)
         k = rope(k.transpose(1, 2), positions, acfg.rope_theta).transpose(1, 2)
-    out, rep, bad = _paged_chunk(q, k, v, cache, cfg=efta_cfg(ft),
-                                 window=window, sm_scale=acfg.softmax_scale,
-                                 fault=fault)
+    cfg = efta_cfg(ft)
+    bad = None
+    if paged:
+        out, rep, bad = _paged_chunk(q, k, v, cache, cfg=cfg, window=window,
+                                     sm_scale=acfg.softmax_scale, fault=fault)
+    elif cache is not None and mode == "decode":
+        out, rep = _ring_decode(q, k, v, cache, positions, impl=ft.attn_impl,
+                                cfg=cfg, window=window,
+                                sm_scale=acfg.softmax_scale, fault=fault)
+    else:
+        if cache is not None:
+            # prefill: fill the fresh ring, attend within the prompt itself
+            slots = positions[0] % cache.k.shape[2]
+            cache.k[:, :, slots, :] = k.to(cache.k.dtype)
+            cache.v[:, :, slots, :] = v.to(cache.v.dtype)
+        out, rep = attention_op(q, k, v, impl=ft.attn_impl, cfg=cfg,
+                                causal=acfg.causal, window=window,
+                                sm_scale=acfg.softmax_scale, fault=fault)
     return matmul(_merge_heads(out), params["wo"]), rep, bad

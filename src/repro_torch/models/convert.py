@@ -5,7 +5,9 @@ already converted to numpy arrays by the caller (this package does not
 import JAX), and returns the same tree of torch tensors. The layouts are
 the reference's — blocks stacked on a leading layer axis, dense weights
 (d_in, d_out), heads contiguous within a projection — so both packages
-compute the same function of the same numbers.
+compute the same function of the same numbers. The tensors land on the
+card unless the caller asks for the CPU (``device="cpu"``), as every entry
+point of the port does.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import resolve_device
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -26,8 +29,10 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def from_reference_params(params_np, cfg: ModelConfig, device="cpu") -> Any:
+def from_reference_params(params_np, cfg: ModelConfig, device="cuda"
+                          ) -> Any:
     dtype = getattr(torch, cfg.dtype)
+    device = resolve_device(device)
 
     def conv(tree):
         if isinstance(tree, dict):

@@ -1,10 +1,12 @@
-"""Dense decoder assembly: parameters, per-layer flags and the forward pass
-of the unified serving step, as a Python loop over layers.
+"""Dense decoder assembly: parameters, per-layer flags and the forward pass,
+as a Python loop over layers: the full-sequence forward (``mode="train"``,
+logits only, no gradient), ring-cache prefill and decode, and the unified
+serving step over a paged cache.
 
 Parameters keep the JAX package's pytree layout — ``blocks`` holds every
 layer's tensors stacked on a leading layer axis — so weights convert across
-unchanged (``repro_torch.models.convert``). Only the ``dense`` family over
-a paged cache is ported so far.
+unchanged (``repro_torch.models.convert``). Only the ``dense`` family is
+ported so far.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.efta import FTReport
 from repro_torch.kernels.efta_paged import NO_WINDOW
-from repro_torch.models.attention import PagedKVCache, attn_apply, attn_init
+from repro_torch.models.attention import (KVCache, PagedKVCache, attn_apply,
+                                          attn_init)
 from repro_torch.models.layers import (embed_apply, embed_init,
                                        learned_pos_init, mlp_apply, mlp_init,
                                        norm_apply, norm_init, unembed)
@@ -97,8 +100,9 @@ def _to(tree, device):
 
 
 def _block_apply(params, x, *, cfg: ModelConfig, is_global: bool,
-                 theta: float, cache: PagedKVCache, positions, fault):
-    """One pre-norm transformer block. Returns (x, FTReport, bad plane)."""
+                 theta: float, cache, mode: str, positions, fault):
+    """One pre-norm transformer block. Returns (x, FTReport, bad plane or
+    None)."""
     a = cfg.attn
     window = None
     if a.sliding_window is not None:
@@ -107,48 +111,77 @@ def _block_apply(params, x, *, cfg: ModelConfig, is_global: bool,
     h, rep, bad = attn_apply(
         params["attn"], h_in, acfg=dataclasses.replace(a, rope_theta=theta),
         ft=cfg.ft, window=window, positions=positions, cache=cache,
-        mode="decode", fault=fault)
+        mode=mode, fault=fault)
     x = x + h
     h2 = norm_apply(cfg.norm, params["norm2"], x)
     x = x + mlp_apply(params["mlp"], h2, act=cfg.act, glu=cfg.glu)
     return x, rep, bad
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: PagedKVCache, mode: str = "decode", fault=None):
-    """The unified serving step over a paged cache: ``tokens`` (B, S), row
-    ``c`` of request ``b`` at position ``cache.pos[b] + c``. Returns (logits
-    f32 (B, S, V), FTReport with (B, 5) per-request counts, new cache with
-    ``pos`` advanced by ``q_len`` and the step's ``bad`` plane). The pools
-    are updated in place. ``fault`` is the kernel's int32[8] descriptor and
-    strikes every layer's attention (a superset of the single-layer SEU)."""
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
+            mode: str = "train", fault=None):
+    """The decoder forward. ``tokens`` (B, S).
+
+    * ``mode="train"``, no cache: the full sequence, causally (logits only;
+      the port has no training step yet).
+    * ``mode="prefill"``, a fresh :class:`KVCache`: the prompt at positions
+      ``0..S-1``, filling every layer's ring.
+    * ``mode="decode"``: row ``c`` of request ``b`` at position
+      ``cache.pos[b] + c``, over a :class:`KVCache` ring (per-slot decode)
+      or a :class:`PagedKVCache` (the unified serving step; pools updated
+      in place, ``fault`` the paged kernel's int32[8] descriptor).
+
+    Returns (logits f32 (B, S, V), FTReport with (B, 5) per-row counts, new
+    cache or None). A new cache has ``pos`` advanced (by ``q_len`` on the
+    paged path, to ``S`` after prefill) and, paged, the step's ``bad``
+    plane. ``fault`` strikes every layer's attention (a superset of the
+    single-layer SEU)."""
     _check_family(cfg)
-    if mode != "decode" or not isinstance(cache, PagedKVCache):
-        raise NotImplementedError(
-            "repro_torch ports the paged serving forward (mode='decode' "
-            "over a PagedKVCache); training and ring caches come later")
+    paged = isinstance(cache, PagedKVCache)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if (cache is None) != (mode == "train") or (
+            paged and mode != "decode") or (
+            cache is not None and not paged and not isinstance(cache,
+                                                              KVCache)):
+        raise ValueError(f"mode {mode!r} does not go with cache "
+                         f"{type(cache).__name__}")
     b, s = tokens.shape
     dev = tokens.device
     x = embed_apply(params["embed"], tokens)
-    positions = cache.pos.long()[:, None] + torch.arange(s, device=dev)
+    steps = torch.arange(s, device=dev)
+    if mode == "decode":
+        # ring and paged caches both carry one position per row
+        positions = cache.pos.long()[:, None] + steps
+    else:
+        positions = steps[None, :].expand(b, s)
     if "pos" in params:
         table = params["pos"]["pos"]
         x = x + table[positions.clamp(max=table.shape[0] - 1)].to(x.dtype)
     flags = layer_flags(cfg)
     rep = FTReport.zero(b, device=dev)
-    bad = torch.zeros_like(cache.bad)
+    bad = torch.zeros_like(cache.bad) if paged else None
     for i in range(cfg.num_layers):
         x, rep_i, bad_i = _block_apply(
             _index(params["blocks"], i), x, cfg=cfg,
             is_global=bool(flags["is_global"][i]),
-            theta=float(flags["theta"][i]), cache=cache.layer(i),
+            theta=float(flags["theta"][i]),
+            cache=None if cache is None else cache.layer(i), mode=mode,
             positions=positions, fault=fault)
         rep = rep.merge(rep_i)
-        bad = torch.maximum(bad, bad_i)
+        if paged:
+            bad = torch.maximum(bad, bad_i)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     table = params.get("lm_head", params["embed"])["table"]
     logits = unembed(x, table)
-    new_cache = dataclasses.replace(
-        cache, pos=cache.pos + cache.q_len,
-        bad=torch.maximum(cache.bad, bad))
+    if cache is None:
+        new_cache = None
+    elif paged:
+        new_cache = dataclasses.replace(
+            cache, pos=cache.pos + cache.q_len,
+            bad=torch.maximum(cache.bad, bad))
+    else:
+        new_cache = dataclasses.replace(
+            cache, pos=(positions[:, -1] + 1).to(torch.int32))
     return logits, rep, new_cache

@@ -40,7 +40,7 @@ from repro_torch.kernels.efta_paged import paged_fault_descriptor
 from repro_torch.models.api import Model
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.serve.blocks import BlockPool, PrefixCache
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, StepReport
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.scheduler import Request
 
@@ -56,13 +56,6 @@ class PagedKVState(NamedTuple):
     kc2: torch.Tensor
     vc1: torch.Tensor
     vc2: torch.Tensor
-
-
-class StepReport(NamedTuple):
-    """Host copy of one step's per-slot EFTA counts, (n_slots, 5) each."""
-
-    detected: np.ndarray
-    corrected: np.ndarray
 
 
 @dataclasses.dataclass
@@ -230,8 +223,7 @@ class PagedServeEngine(ServeEngine):
         next_tokens = sample_tokens(
             last, temperature=self._temps, top_k=self._topks,
             seeds=self._seeds, rids=self._rids, counters=self._counters)
-        report = StepReport(rep.detected.cpu().numpy().astype(np.int64),
-                            rep.corrected.cpu().numpy().astype(np.int64))
+        report = StepReport.of(rep)
         return next_tokens, report, (new_cache.bad > 0).cpu().numpy()
 
     # -- resident-state fault injection -------------------------------------

@@ -45,7 +45,8 @@ def _models(arch):
     jp = jm.init(jax.random.PRNGKey(0))
     cfg = get_config(arch)
     tm = build_model(cfg, device="cpu")
-    tp = from_reference_params(jax.tree.map(np.asarray, jp), cfg)
+    tp = from_reference_params(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
     return jm, jp, tm, tp, cfg
 
 

@@ -42,7 +42,8 @@ def setup():
     jp = jm.init(jax.random.PRNGKey(0))
     cfg = get_config("gpt2-smoke")
     tm = build_model(cfg, device="cpu")
-    tp = from_reference_params(jax.tree.map(np.asarray, jp), cfg)
+    tp = from_reference_params(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (t,)).astype(np.int32)
                for t in LENGTHS]
