@@ -12,10 +12,14 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              plain PyTorch version on the same CUDA tensors, at gpt2 shapes
              (B 8, H 12, D 64, C 1 and 64, f32 and bf16) and gemma3-1b
              attention shapes (H 4, Hkv 1, D 256, C 64, window 512 and
-             none, bf16): outputs within ``out_bound`` element by element,
-             detection vectors and bad planes exactly equal, zero detections on clean input, each
-             compute-site SEU and a resident KV flip detected alike and
-             corrected back to the clean output.
+             none, bf16), plus decode at grp 4 (gemma3-1b, C 1), a C 64
+             step with decode rows, and requests that fill the 64-block
+             table: outputs within ``out_bound`` element by element,
+             detection vectors and bad planes exactly equal, zero detections
+             on clean input, each compute-site SEU and a resident KV flip
+             detected alike and corrected back to the clean output. Clean,
+             the kernel also matches the plain version with its KV walk
+             split over 4 warps and merged (``_paged_split_torch``).
 4. serve   — the port's PagedServeEngine(kernel="fused") on gpt2 at full
              width in bf16 with random weights from the seed: 8 slots, 16
              requests of 64-512 prompt tokens, 32 new tokens each. Every
@@ -27,7 +31,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              the kernel at the serve run's decode (C 1) and prefill (C 64)
              inputs beside its bound, its plain version and
              scaled_dot_product_attention on a contiguous copy (a yardstick
-             the port never calls).
+             the port never calls): CUDA events around 50 back-to-back calls,
+             and the profiler's device time per call of both.
 6. profile — the clean run again under torch.profiler: device time by
              kernel group and the device's busy share of the wall time.
 7. kernel_b2 — the fused contiguous EFTA kernel (``efta_attention.cu``)
@@ -37,7 +42,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              kv_len 100, causal and not) and gemma3-1b shapes (H 4, Hkv 1,
              D 256, Skv 1024, window 512 and none, bf16 and f32); each
              clean, under each compute-site SEU in correct and in detect
-             mode, with per-step output verification and with mode off.
+             mode, with per-step output verification and with mode off;
+             the bf16 buckets and gemma3-1b window 512 at 32 and at 16
+             rows (2 and 1 groups of 4 warps) per thread block.
              Outputs within ``out_bound`` element by element (f32: 1e-5 of
              the largest output; bf16: about one bf16 ulp), detection
              vectors exactly equal.
@@ -56,7 +63,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              and 512) beside its bound, its plain version and
              scaled_dot_product_attention(is_causal=True) on the same q/k/v
              (a yardstick the port never calls): CUDA events around 50
-             back-to-back calls, and the profiler's device time per call.
+             back-to-back calls, and the profiler's device time per call,
+             with thread blocks of 32 and of 16 rows.
 10. ring_profile — the clean ring run under torch.profiler.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``. Any
@@ -66,6 +74,8 @@ It exits non-zero as well where no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib
 import json
 import math
 import statistics
@@ -125,6 +135,19 @@ def phase_device(torch):
     return smi[0]
 
 
+def ptxas_summary(log):
+    """Registers, stack and spills per kernel instantiation, from nvcc's
+    ``-Xptxas -v`` output: {"bf16" | "f32": "N registers, ..."}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = "bf16" if "bfloat16" in ln else "f32"
+        elif name and ("spill" in ln or "registers" in ln):
+            out[name] = (out.get(name, "") + " " + ln.split(":")[-1].strip()
+                         ).strip()
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -132,9 +155,7 @@ def phase_build():
              for name in _build.sources()]
     logs = {p.repro_name: _build.finish_build(p) for p in procs}
     dt = time.perf_counter() - t0
-    regs = {n: [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-            for n, log in logs.items()}
+    regs = {n: ptxas_summary(log) for n, log in logs.items()}
     emit({"phase": "build", "seconds": round(dt, 3), "sources": sorted(logs),
           "ptxas": regs})
 
@@ -153,13 +174,18 @@ def top_exponent_bit(t) -> int:
 
 
 def make_case(torch, cks, *, dtype, B, H, Hkv, D, C, seed, bs=16, mb=64,
-              max_kv=1024):
+              max_kv=1024, decode_rows=False, full_ctx=False):
     g = torch.Generator().manual_seed(seed)
     kv_lens = torch.randint(max(C, 1), max_kv + 1, (B,), generator=g)
+    if full_ctx:
+        kv_lens[:2] = mb * bs       # the whole table: 64 blocks of 16
     q_lens = torch.full((B,), C, dtype=torch.long)
     if C > 1:
         q_lens[0] = C // 2          # ragged chunk
         q_lens[-1] = 0              # idle slot: streamed, verified, no rows
+        if decode_rows:
+            q_lens[1:4] = 1         # decode rows in a chunked step: their
+            #                         other 63 rows are padding
     need = [-(-int(t) // bs) for t in kv_lens]
     nb = sum(need) + 3
     ids = torch.randperm(nb, generator=g) + 1   # fragmented tables
@@ -205,11 +231,28 @@ def compare(torch, got, ref, what):
     return err
 
 
+def split_compare(torch, got, split, what):
+    """The kernel against the plain version with its KV walk split over 4
+    warps and merged, on clean input: detection vectors and bad planes
+    exactly equal; f32 outputs within ``out_bound``. In bf16 each span
+    rounds p to bf16 at its own running max, not the sequential one, so
+    the outputs move by about a bf16 ulp; their largest difference is
+    returned and reported, not bounded."""
+    check(torch.equal(got.detected, split.detected) and
+          torch.equal(got.bad_blocks, split.bad_blocks),
+          f"{what}: kernel and split plain version disagree on clean input")
+    diff = float((got.out.float() - split.out.float()).abs().max())
+    if got.out.dtype == torch.float32:
+        compare(torch, got, split, f"{what} clean, split plain version")
+    return diff
+
+
 def phase_kernel(torch):
     from repro_torch.core import checksum as cks
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.core.fault import Site, flip_bit_at
     from repro_torch.kernels.efta_paged import (NO_WINDOW,
+                                                _paged_split_torch,
                                                 efta_paged_attention,
                                                 efta_paged_attention_torch)
     # the engine's EFTAConfig at block 16: s_kv 4, s_out D // 16
@@ -224,15 +267,31 @@ def phase_kernel(torch):
         shapes.append(dict(name=f"gemma3-1b C64 window {win}",
                            dtype=torch.bfloat16, B=8, H=4, Hkv=1, D=256,
                            C=64, window=win))
+    # the redesign's cases: decode at grp 4 (one warp, 4 real rows), a
+    # chunked step with decode rows (their padding rows computed and counted
+    # as the reference counts them), and
+    # requests that fill the 64-block table
+    shapes += [
+        dict(name="gemma3-1b C1 grp 4 window 512", dtype=torch.bfloat16, B=8,
+             H=4, Hkv=1, D=256, C=1, window=512),
+        dict(name="gpt2 C64 with decode rows bf16", dtype=torch.bfloat16,
+             B=8, H=12, Hkv=12, D=64, C=64, window=None, decode_rows=True),
+        dict(name="gpt2 C1 1024-token context bf16", dtype=torch.bfloat16,
+             B=8, H=12, Hkv=12, D=64, C=1, window=None, full_ctx=True)]
     results = []
     for si, sh in enumerate(shapes):
         case = make_case(torch, cks, seed=100 + si, **{
-            k: sh[k] for k in ("dtype", "B", "H", "Hkv", "D", "C")})
+            k: sh[k] for k in ("dtype", "B", "H", "Hkv", "D", "C",
+                               "decode_rows", "full_ctx") if k in sh})
         kw = {"window": sh["window"]}
         got = call(efta_paged_attention, case, cfg, **kw)
         ref = call(efta_paged_attention_torch, case, cfg, **kw)
+        # the KV walk split over 4 warps and merged (clean: the same result)
+        split = call(functools.partial(_paged_split_torch, warps=4), case,
+                     cfg, **kw)
         torch.cuda.synchronize()
         err = compare(torch, got, ref, f"{sh['name']} clean")
+        split_err = split_compare(torch, got, split, sh["name"])
         check(int(got.detected.sum()) == 0 and not bool(got.bad_blocks.any()),
               f"{sh['name']}: detections on clean input "
               f"{got.detected.tolist()}")
@@ -280,6 +339,7 @@ def phase_kernel(torch):
               int(got_k.detected[b2, 5]) >= 1,
               f"{sh['name']}: resident flip not flagged at its block")
         results.append({"shape": sh["name"], "max_abs_err": err,
+                        "split_max_abs_diff": split_err,
                         "tol": tol, "seu_counts": site_counts,
                         "kv_flip_det": got_k.detected[b2].tolist()})
     emit({"phase": "kernel", "ok": True, "cases": results})
@@ -570,12 +630,16 @@ def phase_numbers(torch, serve, max_err_phase3):
                            reps=3, warmup=1)
         lib = library_call(torch, cap)
         lib_ms = time_ms(torch, lib, reps=50)
+        dev_ms = device_ms(torch, lambda: run(efta_paged_attention), 20,
+                           name="efta_paged_kernel")
+        lib_dev_ms = device_ms(torch, lib, 20)
         nbytes, flops = launch_work(torch, cap)
         peak = PEAK_FLOPS[str(cap["q"].dtype)]
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         per[key] = {
             "shape": list(cap["q"].shape), "q_lens_sum": cap["load"],
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "max_abs_err": err}
@@ -593,10 +657,12 @@ def phase_numbers(torch, serve, max_err_phase3):
                            max_err_phase3),
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+        "device_ms": d["device_ms"],
+        "library_device_ms": d["library_device_ms"],
         "shape": "serve decode, C 1",
         "prefill": {k: per["prefill"][k] for k in
-                    ("ms", "plain_ms", "bound_ms", "bound_by",
-                     "library_ms")},
+                    ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "library_device_ms")},
     }
 
 
@@ -649,24 +715,37 @@ def seu_bit(mode: str) -> int:
 
 
 def b2_cases(torch):
+    """Each case with the 16-row groups per thread block it is run at (the
+    kernel takes at most that many): the main path's buckets and gemma3-1b's
+    D 256 at every choice."""
     cases = []
     for S in (64, 512):
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(dict(name=f"gpt2 prefill S{S} {str(dtype)[6:]}",
                               dtype=dtype, B=1, H=12, Hkv=12, D=64, Sq=S,
-                              Skv=S, cfg={}, kw=dict(causal=True)))
+                              Skv=S, cfg={}, kw=dict(causal=True),
+                              groups=(2, 1) if dtype == torch.bfloat16
+                              else (2,)))
     for causal in (True, False):
         cases.append(dict(name=f"multi-block kv_len 100 causal {causal}",
                           dtype=torch.float32, B=2, H=4, Hkv=2, D=64,
                           Sq=128, Skv=128, cfg=dict(stride=8, block_kv=16),
-                          kw=dict(causal=causal, kv_len=100)))
+                          kw=dict(causal=causal, kv_len=100), groups=(2,)))
     for dtype in (torch.bfloat16, torch.float32):
         for win in (512, None):
             cases.append(dict(name=f"gemma3-1b window {win} "
                               f"{str(dtype)[6:]}", dtype=dtype, B=1, H=4,
                               Hkv=1, D=256, Sq=1024, Skv=1024, cfg={},
-                              kw=dict(causal=True, window=win)))
+                              kw=dict(causal=True, window=win),
+                              groups=(2, 1) if dtype == torch.bfloat16
+                              and win == 512 else (2,)))
     return cases
+
+
+def b2_module():
+    """The B2 wrapper's module (the package re-exports other names), whose
+    private ``_MAX_GROUPS`` caps the 16-row groups per thread block."""
+    return importlib.import_module("repro_torch.kernels.efta_attention")
 
 
 def out_bound(torch, ref_out):
@@ -712,6 +791,7 @@ def phase_kernel_b2(torch):
     from repro_torch.core.fault import Site
     from repro_torch.kernels.efta_attention import (efta_attention,
                                                     efta_attention_torch)
+    mod = b2_module()
     dev = torch.device(DEVICE)
     results = []
     for ci, c in enumerate(b2_cases(torch)):
@@ -722,18 +802,30 @@ def phase_kernel_b2(torch):
         q, k, v = (x.to(dev, c["dtype"]) for x in (q, k, v))
 
         def both(cfg, fault=None, c=c, q=q, k=k, v=v):
-            got = efta_attention(q, k, v, cfg=cfg, fault=fault, **c["kw"])
+            """The kernel at each row-group choice of the case, and the
+            plain version once."""
+            gots = {}
+            for ng in c["groups"]:
+                mod._MAX_GROUPS = ng
+                gots[ng] = efta_attention(q, k, v, cfg=cfg, fault=fault,
+                                          **c["kw"])
+            mod._MAX_GROUPS = 2
             ref = efta_attention_torch(q, k, v, cfg=cfg, fault=fault,
                                        **c["kw"])
             torch.cuda.synchronize()
-            return got, ref
+            return gots, ref
+
+        def compare_all(gots, ref, what):
+            errs = [b2_compare(torch, got, ref, f"{what}, groups {ng}")
+                    for ng, got in gots.items()]
+            return max(e[0] for e in errs), max(e[1] for e in errs)
 
         correct = EFTAConfig(mode="correct", **c["cfg"])
-        got, ref = both(correct)
-        err, worst = b2_compare(torch, got, ref, f"{c['name']} clean")
+        gots, ref = both(correct)
+        err, worst = compare_all(gots, ref, f"{c['name']} clean")
         clean_ratio = worst   # worst: the largest error over bound, any run
-        check(int(got[1].sum()) == 0,
-              f"{c['name']}: detections on clean input {got[1].tolist()}")
+        check(int(gots[2][1].sum()) == 0,
+              f"{c['name']}: detections on clean input {gots[2][1].tolist()}")
         clean = ref[0].float()
         counts = {}
         # head 1 of batch 0, the last query row, column 3 of the KV block
@@ -746,32 +838,32 @@ def phase_kernel_b2(torch):
             for site in (Site.GEMM1, Site.ROWMAX, Site.EXP, Site.ROWSUM,
                          Site.GEMM2):
                 desc = [int(site), blk, 1, row, 3, seu_bit(mode), 1, 0]
-                g_f, r_f = both(cfg, desc)
+                gots_f, r_f = both(cfg, desc)
                 what = f"{c['name']} {site.name} {mode}"
-                worst = max(worst, b2_compare(torch, g_f, r_f, what)[1])
-                n = int(g_f[1].sum())
+                worst = max(worst, compare_all(gots_f, r_f, what)[1])
+                n = int(gots_f[2][1].sum())
                 # shadows catch every change of their value; in correct mode
                 # the EXP recompute catches every flip of p, and a top-bit
                 # GEMM I flip moves the score by at least 2 or to 1e6/0
                 need = site in (Site.ROWMAX, Site.ROWSUM) or (
                     mode == "correct" and site in (Site.GEMM1, Site.EXP))
                 check(n >= 1 or not need, f"{what}: SEU not detected")
-                entry = {"detected": g_f[1].tolist()}
+                entry = {"detected": gots_f[2][1].tolist()}
                 if mode == "correct":
                     entry["off_clean"] = float(
-                        (g_f[0].float() - clean).abs().max())
+                        (gots_f[2][0].float() - clean).abs().max())
                 counts[f"{site.name} {mode}"] = entry
         for name, cfg, desc in (
                 ("per-step verify", EFTAConfig(unified=False, **c["cfg"]),
                  [int(Site.GEMM2), blk, 1, row, 3, 30, 1, 0]),
                 ("mode off", EFTAConfig(mode="off", **c["cfg"]),
                  [int(Site.EXP), blk, 1, row, 3, 30, 1, 0])):
-            g_f, r_f = both(cfg, desc)
-            worst = max(worst, b2_compare(torch, g_f, r_f,
-                                          f"{c['name']} {name}")[1])
-            counts[name] = {"detected": g_f[1].tolist()}
-        results.append({"case": c["name"], "max_abs_err": err,
-                        "err_over_bound": clean_ratio,
+            gots_f, r_f = both(cfg, desc)
+            worst = max(worst, compare_all(gots_f, r_f,
+                                           f"{c['name']} {name}")[1])
+            counts[name] = {"detected": gots_f[2][1].tolist()}
+        results.append({"case": c["name"], "groups": list(c["groups"]),
+                        "max_abs_err": err, "err_over_bound": clean_ratio,
                         "worst_err_over_bound": worst, "seu": counts})
     emit({"phase": "kernel_b2", "ok": True, "cases": results})
     return max(r["max_abs_err"] for r in results)
@@ -979,12 +1071,20 @@ def phase_numbers_b2(torch, np, ring, max_err):
         lib_ms = time_ms(torch, sdpa, reps=50)
         dev_ms = device_ms(torch, lambda: run(efta_attention), 20,
                            name="efta_attention_kernel")
+        by_groups = {}
+        mod = b2_module()
+        for ng in (2, 1):
+            mod._MAX_GROUPS = ng
+            by_groups[ng] = device_ms(torch, lambda: run(efta_attention), 20,
+                                      name="efta_attention_kernel")
+        mod._MAX_GROUPS = 2
         lib_dev_ms = device_ms(torch, sdpa, 20)
         nbytes, flops = b2_work(cap)
         peak = PEAK_FLOPS[str(cap["q"].dtype)]
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         per[S] = {"shape": list(cap["q"].shape), "ms": ms,
-                  "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "device_ms": dev_ms, "device_ms_by_max_groups": by_groups,
+                  "plain_ms": plain_ms,
                   "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                   "bound_ms": max(t_bytes, t_ops),
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",

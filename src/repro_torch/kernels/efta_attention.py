@@ -368,9 +368,15 @@ _ARGTYPES = ([ctypes.c_int]                        # dtype code
              #                                       s_kv s_out causal window
              + [ctypes.c_float] * 8                # scale eps1-3 cap cap_g
              #                                       cap_m upper
-             + [ctypes.c_int] * 4                  # mode unified shadows
+             + [ctypes.c_int] * 5                  # mode unified shadows
+             #                                       max_groups
              + [ctypes.c_int] * 8                  # fault descriptor
              + [ctypes.c_void_p])                  # stream
+
+
+# 16-row groups (of 4 warps) per thread block at most; the C entry point
+# takes fewer where the query tile or shared memory is smaller
+_MAX_GROUPS = 2
 
 
 def _lib():
@@ -378,7 +384,7 @@ def _lib():
     if not getattr(lib, "_efta_bound", False):
         lib.efta_attention_launch.argtypes = _ARGTYPES
         lib.efta_attention_launch.restype = ctypes.c_int
-        lib.efta_attention_tiles.argtypes = [ctypes.c_int] * 5
+        lib.efta_attention_tiles.argtypes = [ctypes.c_int] * 7
         lib.efta_attention_tiles.restype = ctypes.c_int
         lib.efta_attention_error_string.argtypes = [ctypes.c_int]
         lib.efta_attention_error_string.restype = ctypes.c_char_p
@@ -399,13 +405,14 @@ def _efta_cuda(c: _Call, q, k, v, cfg: EFTAConfig):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     BH, D = c.b * c.h, c.d
     lib = _lib()
-    # sub-tiles per query tile: the kernel gives each thread block a few
-    # rows of one reference tile (0 = the shapes do not fit an SM)
-    n_sub = lib.efta_attention_tiles(c.block_q, c.block_kv, D, c.s_kv,
-                                     c.s_out)
+    # sub-tiles per query tile: a thread block takes 16 or 32 rows of one
+    # reference tile (0 = the kernel takes no tiling of these shapes)
+    n_sub = lib.efta_attention_tiles(DTYPES[dtype], c.block_q, c.block_kv,
+                                     D, c.s_kv, c.s_out, _MAX_GROUPS)
     if n_sub <= 0:
-        raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} x "
-                         f"head_dim {D} does not fit one thread block")
+        raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} "
+                         f"(stride {c.s_kv}) x head_dim {D} has no tiling "
+                         f"that fits one thread block")
     out = torch.empty_like(q)
     rep = torch.empty((BH, c.n_q * n_sub, 5), dtype=torch.int32,
                       device=q.device)
@@ -419,7 +426,7 @@ def _efta_cuda(c: _Call, q, k, v, cfg: EFTAConfig):
         c.scale, eps1, eps2, eps3, c.cap, c.cap * c.g_kv, c.cap - 1e-3,
         float(c.kv_len) + 1e-3,
         MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
-        int(cfg.shadow_rowmax), *c.fault, stream)
+        int(cfg.shadow_rowmax), _MAX_GROUPS, *c.fault, stream)
     if rc != 0:
         msg = lib.efta_attention_error_string(rc).decode()
         raise RuntimeError(f"efta_attention kernel launch failed: CUDA error "

@@ -184,8 +184,49 @@ def efta_paged_attention_torch(q, k_pool, v_pool, k_checks, v_checks,
                                        v_checks, block_tables, kv_lens, cfg))
 
 
+def _paged_split_torch(q, k_pool, v_pool, k_checks, v_checks, block_tables,
+                       kv_lens, q_lens=None, *, cfg: EFTAConfig, warps: int,
+                       check_threshold=None, window=None, sm_scale=None,
+                       fault=None) -> PagedReport:
+    """The plain version with the KV blocks split over ``warps`` spans, as a
+    kernel that parallelises over KV blocks would run them: span ``w``
+    walks blocks ``j = w, w + warps, ...`` from a fresh row state, the spans'
+    states are merged in span order and the finalize runs once. Used by
+    tests and ``chip_smoke.py`` to hold that merge against the sequential
+    order of :func:`efta_paged_attention_torch`: equal on clean input (in
+    bf16 within about a bf16 ulp, since each span rounds p for GEMM II at
+    its own running max), but an SEU on the running state strikes one
+    span's partial value, so detections can differ — why the kernel
+    replays the running state in block order instead of merging spans."""
+    call = _prepare(q, k_pool, k_checks, block_tables, kv_lens, q_lens,
+                    cfg=cfg, check_threshold=check_threshold, window=window,
+                    sm_scale=sm_scale, fault=fault)
+    return _report(call, *_paged_torch(call, k_pool, v_pool, k_checks,
+                                       v_checks, block_tables, kv_lens, cfg,
+                                       warps=warps))
+
+
+def _merge_spans(parts):
+    """Merge per-span row states (m, l, lsh, r, acc, oc1, oc2, vmax) in span
+    order: the running max over all spans, then each span's sums rescaled
+    to it by exp(m_span - m) and added in order; max|V| by maximum."""
+    m = parts[0][0]
+    for part in parts[1:]:
+        m = torch.maximum(m, part[0])
+    alive = m > MASK_VALUE / 2
+    sums = [None] * 6
+    vmax = parts[0][7]
+    for part in parts:
+        a = torch.where(alive, torch.exp(part[0] - m), torch.ones_like(m))
+        for i in range(6):
+            x = a * part[1 + i]
+            sums[i] = x if sums[i] is None else sums[i] + x
+        vmax = torch.maximum(vmax, part[7])
+    return (m, *sums, vmax)
+
+
 def _paged_torch(call: _Call, k_pool, v_pool, k_checks, v_checks,
-                 block_tables, kv_lens, cfg: EFTAConfig):
+                 block_tables, kv_lens, cfg: EFTAConfig, warps: int = 1):
     qr = call.qr
     dev = qr.device
     B, hkv, R, D = qr.shape
@@ -213,15 +254,7 @@ def _paged_torch(call: _Call, k_pool, v_pool, k_checks, v_checks,
     ql = call.q_lens.to(device=dev, dtype=torch.long)
     win = call.window
 
-    m = torch.full((B, hkv, R, 1), MASK_VALUE, dtype=f32, device=dev)
-    l = torch.zeros((B, hkv, R, 1), dtype=f32, device=dev)
-    lsh = torch.zeros_like(l)
-    r = torch.zeros_like(l)
-    acc = torch.zeros((B, hkv, R, D), dtype=f32, device=dev)
-    oc1 = torch.zeros((B, hkv, R, s_out), dtype=f32, device=dev)
-    oc2 = torch.zeros_like(oc1)
     det = torch.zeros((B, hkv, 6), dtype=torch.int32, device=dev)
-    vmax = torch.zeros((B, hkv), dtype=f32, device=dev)
     bad = torch.zeros((B, hkv, mb), dtype=torch.int32, device=dev)
 
     crow = torch.arange(R, device=dev) % C                     # (R,)
@@ -231,135 +264,152 @@ def _paged_torch(call: _Call, k_pool, v_pool, k_checks, v_checks,
         n = flags.flatten(2).sum(-1, dtype=torch.int32)        # (B, hkv)
         det[..., site] += torch.where(run4[:, :, 0, 0], n, 0)
 
-    for j in range(mb):
-        kv_start = j * bs
-        run = (kv_start < kvl) & (base - (kv_start + bs - 1) < win)   # (B,)
-        if not bool(run.any()):
-            continue
-        run4 = run[:, None, None, None].expand(B, hkv, 1, 1)
-        ids = bt[:, j]
-        k = k_pool[ids]                                        # (B,hkv,bs,D)
-        v = v_pool[ids]
-        real = ids > 0
+    def span(first: int):
+        """The sequential block loop over blocks first, first + warps, ...
+        from a fresh row state (all blocks when warps is 1)."""
+        m = torch.full((B, hkv, R, 1), MASK_VALUE, dtype=f32, device=dev)
+        l = torch.zeros((B, hkv, R, 1), dtype=f32, device=dev)
+        lsh = torch.zeros_like(l)
+        r = torch.zeros_like(l)
+        acc = torch.zeros((B, hkv, R, D), dtype=f32, device=dev)
+        oc1 = torch.zeros((B, hkv, R, s_out), dtype=f32, device=dev)
+        oc2 = torch.zeros_like(oc1)
+        vmax = torch.zeros((B, hkv), dtype=f32, device=dev)
 
-        if ft:
-            fk = cks.encode_kv_tile(k, cs)
-            fv = cks.encode_kv_tile(v, cs)
-            bad_k = cks.block_fold_bad(
-                fk, cks.Checksums(k_checks.c1[ids], k_checks.c2[ids]),
-                threshold=call.kv_thr)
-            bad_v = cks.block_fold_bad(
-                fv, cks.Checksums(v_checks.c1[ids], v_checks.c2[ids]),
-                threshold=call.kv_thr)
-            flag = (bad_k | bad_v) & real[:, None] & run[:, None]
-            det[..., 5] += flag.to(torch.int32)
-            bad[..., j] = flag.to(torch.int32)
-            vm = torch.maximum(vmax, v.float().abs().amax(dim=(-2, -1)))
-            vmax = torch.where(run[:, None], vm, vmax)
+        for j in range(first, mb, warps):
+            kv_start = j * bs
+            run = (kv_start < kvl) & (base - (kv_start + bs - 1) < win)   # (B,)
+            if not bool(run.any()):
+                continue
+            run4 = run[:, None, None, None].expand(B, hkv, 1, 1)
+            ids = bt[:, j]
+            k = k_pool[ids]                                        # (B,hkv,bs,D)
+            v = v_pool[ids]
+            real = ids > 0
 
-        # ---- GEMM I (f32 accumulate) + tensor-checksum ABFT ----
-        s = torch.matmul(qf, k.float().transpose(-1, -2)) * call.scale
-        s = _flip(s, on=hit(Site.GEMM1, j),
-                  index=(fd[P_B], fd[P_H], fd[P_ROW], fd[P_COL]),
-                  bit=fd[P_BIT])
-        if ft:
-            s = torch.where(torch.isfinite(s), s.clamp(-1e6, 1e6),
-                            torch.zeros_like(s))
-            kc1, kc2 = cks.encode_kv_tile(k, s_kv)
-            sc1 = torch.matmul(qf, kc1.transpose(-1, -2)) * call.scale
-            sc2 = torch.matmul(qf, kc2.transpose(-1, -2)) * call.scale
-            d1 = sc1 - _fold_slices(s, s_kv, weighted=False)
-            d2 = sc2 - _fold_slices(s, s_kv, weighted=True)
-            bad_g = d1.abs() > eps1
-            count(0, bad_g, run4)
-            if correct:
-                s = _correct_strided(s, d1, d2, bad_g, s_kv)
+            if ft:
+                fk = cks.encode_kv_tile(k, cs)
+                fv = cks.encode_kv_tile(v, cs)
+                bad_k = cks.block_fold_bad(
+                    fk, cks.Checksums(k_checks.c1[ids], k_checks.c2[ids]),
+                    threshold=call.kv_thr)
+                bad_v = cks.block_fold_bad(
+                    fv, cks.Checksums(v_checks.c1[ids], v_checks.c2[ids]),
+                    threshold=call.kv_thr)
+                flag = (bad_k | bad_v) & real[:, None] & run[:, None]
+                det[..., 5] += flag.to(torch.int32)
+                bad[..., j] = flag.to(torch.int32)
+                vm = torch.maximum(vmax, v.float().abs().amax(dim=(-2, -1)))
+                vmax = torch.where(run[:, None], vm, vmax)
 
-        # ---- per-row causal + window + ragged mask, running max ----
-        cols = kv_start + torch.arange(bs, device=dev)
-        mask = ((cols[None, None, :] <= qpos[:, :, None])
-                & (qpos[:, :, None] - cols[None, None, :] < win)
-                & (crow[None, :, None] < ql[:, None, None]))[:, None]
-        s_m = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
-        blockmax = s_m.amax(dim=-1, keepdim=True)
-        m_prev = m
-        m_new = torch.maximum(m_prev, blockmax)
-        m_new = _flip(m_new, on=hit(Site.ROWMAX, j),
-                      index=(fd[P_B], fd[P_H], fd[P_ROW], 0), bit=fd[P_BIT])
-        if ft and cfg.shadow_rowmax:
-            m_chk = torch.maximum(m_prev.clone(), blockmax)
-            bad_m = m_new != m_chk
-            count(2, bad_m, run4)
-            if correct:
-                m_new = torch.where(bad_m, m_chk, m_new)
-        alive = m_new > MASK_VALUE / 2
-        m_sub = torch.where(alive, m_new, torch.zeros_like(m_new))
-
-        # ---- EXP with checksum reuse (paper Case 2) ----
-        p_raw = torch.exp(torch.clamp(s - m_sub, max=cap))
-        p_raw = _flip(p_raw, on=hit(Site.EXP, j),
+            # ---- GEMM I (f32 accumulate) + tensor-checksum ABFT ----
+            s = torch.matmul(qf, k.float().transpose(-1, -2)) * call.scale
+            s = _flip(s, on=hit(Site.GEMM1, j),
                       index=(fd[P_B], fd[P_H], fd[P_ROW], fd[P_COL]),
                       bit=fd[P_BIT])
-        if ft:
-            pc1 = torch.exp(torch.clamp(sc1 - g_kv * m_sub, max=cap * g_kv))
-            prod = _fold_prod(p_raw, s_kv)
-            ref = torch.clamp(pc1.abs(), min=1e-20)
-            bad_e = (prod - pc1).abs() > eps2 * ref + 1e-20
-            capped = (s - m_sub) > (cap - 1e-3)
-            for seg in range(g_kv):
-                bad_e &= ~capped[..., seg * s_kv:(seg + 1) * s_kv]
-            count(1, bad_e, run4)
-            if correct:
-                recomputed = torch.exp(torch.clamp(s - m_sub, max=cap))
-                p_raw = p_raw.clone()
+            if ft:
+                s = torch.where(torch.isfinite(s), s.clamp(-1e6, 1e6),
+                                torch.zeros_like(s))
+                kc1, kc2 = cks.encode_kv_tile(k, s_kv)
+                sc1 = torch.matmul(qf, kc1.transpose(-1, -2)) * call.scale
+                sc2 = torch.matmul(qf, kc2.transpose(-1, -2)) * call.scale
+                d1 = sc1 - _fold_slices(s, s_kv, weighted=False)
+                d2 = sc2 - _fold_slices(s, s_kv, weighted=True)
+                bad_g = d1.abs() > eps1
+                count(0, bad_g, run4)
+                if correct:
+                    s = _correct_strided(s, d1, d2, bad_g, s_kv)
+
+            # ---- per-row causal + window + ragged mask, running max ----
+            cols = kv_start + torch.arange(bs, device=dev)
+            mask = ((cols[None, None, :] <= qpos[:, :, None])
+                    & (qpos[:, :, None] - cols[None, None, :] < win)
+                    & (crow[None, :, None] < ql[:, None, None]))[:, None]
+            s_m = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+            blockmax = s_m.amax(dim=-1, keepdim=True)
+            m_prev = m
+            m_new = torch.maximum(m_prev, blockmax)
+            m_new = _flip(m_new, on=hit(Site.ROWMAX, j),
+                          index=(fd[P_B], fd[P_H], fd[P_ROW], 0), bit=fd[P_BIT])
+            if ft and cfg.shadow_rowmax:
+                m_chk = torch.maximum(m_prev.clone(), blockmax)
+                bad_m = m_new != m_chk
+                count(2, bad_m, run4)
+                if correct:
+                    m_new = torch.where(bad_m, m_chk, m_new)
+            alive = m_new > MASK_VALUE / 2
+            m_sub = torch.where(alive, m_new, torch.zeros_like(m_new))
+
+            # ---- EXP with checksum reuse (paper Case 2) ----
+            p_raw = torch.exp(torch.clamp(s - m_sub, max=cap))
+            p_raw = _flip(p_raw, on=hit(Site.EXP, j),
+                          index=(fd[P_B], fd[P_H], fd[P_ROW], fd[P_COL]),
+                          bit=fd[P_BIT])
+            if ft:
+                pc1 = torch.exp(torch.clamp(sc1 - g_kv * m_sub, max=cap * g_kv))
+                prod = _fold_prod(p_raw, s_kv)
+                ref = torch.clamp(pc1.abs(), min=1e-20)
+                bad_e = (prod - pc1).abs() > eps2 * ref + 1e-20
+                capped = (s - m_sub) > (cap - 1e-3)
                 for seg in range(g_kv):
-                    sl = slice(seg * s_kv, (seg + 1) * s_kv)
-                    p_raw[..., sl] = torch.where(bad_e, recomputed[..., sl],
-                                                 p_raw[..., sl])
-        if ft and cfg.shadow_rowmax and correct:
-            # exact recompute backstop
-            recheck = torch.exp(torch.clamp(s - m_sub, max=cap))
-            slipped = p_raw != recheck
-            count(1, slipped, run4)
-            p_raw = torch.where(slipped, recheck, p_raw)
-        p = torch.where(mask, p_raw, torch.zeros_like(p_raw))
+                    bad_e &= ~capped[..., seg * s_kv:(seg + 1) * s_kv]
+                count(1, bad_e, run4)
+                if correct:
+                    recomputed = torch.exp(torch.clamp(s - m_sub, max=cap))
+                    p_raw = p_raw.clone()
+                    for seg in range(g_kv):
+                        sl = slice(seg * s_kv, (seg + 1) * s_kv)
+                        p_raw[..., sl] = torch.where(bad_e, recomputed[..., sl],
+                                                     p_raw[..., sl])
+            if ft and cfg.shadow_rowmax and correct:
+                # exact recompute backstop
+                recheck = torch.exp(torch.clamp(s - m_sub, max=cap))
+                slipped = p_raw != recheck
+                count(1, slipped, run4)
+                p_raw = torch.where(slipped, recheck, p_raw)
+            p = torch.where(mask, p_raw, torch.zeros_like(p_raw))
 
-        # ---- rescale + rowsum (+ shadow) ----
-        alpha = torch.where(alive, torch.exp(m_prev - m_new),
-                            torch.ones_like(m_new))
-        l_new = alpha * l + p.sum(dim=-1, keepdim=True)
-        l_new = _flip(l_new, on=hit(Site.ROWSUM, j),
-                      index=(fd[P_B], fd[P_H], fd[P_ROW], 0), bit=fd[P_BIT])
-        lsh_new = lsh
-        if ft and cfg.shadow_rowsum:
-            lsh_new = alpha * lsh + p.clone().sum(dim=-1, keepdim=True)
-        blk_alive = blockmax > MASK_VALUE / 2
-        r_new = alpha * r + torch.where(blk_alive, torch.exp(blockmax - m_sub),
-                                        torch.zeros_like(blockmax))
+            # ---- rescale + rowsum (+ shadow) ----
+            alpha = torch.where(alive, torch.exp(m_prev - m_new),
+                                torch.ones_like(m_new))
+            l_new = alpha * l + p.sum(dim=-1, keepdim=True)
+            l_new = _flip(l_new, on=hit(Site.ROWSUM, j),
+                          index=(fd[P_B], fd[P_H], fd[P_ROW], 0), bit=fd[P_BIT])
+            lsh_new = lsh
+            if ft and cfg.shadow_rowsum:
+                lsh_new = alpha * lsh + p.clone().sum(dim=-1, keepdim=True)
+            blk_alive = blockmax > MASK_VALUE / 2
+            r_new = alpha * r + torch.where(blk_alive, torch.exp(blockmax - m_sub),
+                                            torch.zeros_like(blockmax))
 
-        # ---- GEMM II + rescale, checksums carried ----
-        pv = torch.matmul(p.to(v.dtype).float(), v.float())
-        acc_new = alpha * acc + pv
-        acc_new = _flip(acc_new, on=hit(Site.GEMM2, j),
-                        index=(fd[P_B], fd[P_H], fd[P_ROW], fd[P_COL]),
-                        bit=fd[P_BIT])
-        oc1_new, oc2_new = oc1, oc2
-        if ft:
-            vcs1 = _fold_slices(v, s_out, weighted=False)      # (.., bs, s_out)
-            vcs2 = _fold_slices(v, s_out, weighted=True)
-            oc1_new = alpha * oc1 + torch.matmul(p, vcs1)
-            oc2_new = alpha * oc2 + torch.matmul(p, vcs2)
-            if not cfg.unified:
-                d1o = oc1_new - _fold_slices(acc_new, s_out, weighted=False)
-                count(4, d1o.abs() > eps3, run4)
+            # ---- GEMM II + rescale, checksums carried ----
+            pv = torch.matmul(p.to(v.dtype).float(), v.float())
+            acc_new = alpha * acc + pv
+            acc_new = _flip(acc_new, on=hit(Site.GEMM2, j),
+                            index=(fd[P_B], fd[P_H], fd[P_ROW], fd[P_COL]),
+                            bit=fd[P_BIT])
+            oc1_new, oc2_new = oc1, oc2
+            if ft:
+                vcs1 = _fold_slices(v, s_out, weighted=False)      # (.., bs, s_out)
+                vcs2 = _fold_slices(v, s_out, weighted=True)
+                oc1_new = alpha * oc1 + torch.matmul(p, vcs1)
+                oc2_new = alpha * oc2 + torch.matmul(p, vcs2)
+                if not cfg.unified:
+                    d1o = oc1_new - _fold_slices(acc_new, s_out, weighted=False)
+                    count(4, d1o.abs() > eps3, run4)
 
-        m = torch.where(run4, m_new, m)
-        l = torch.where(run4, l_new, l)
-        lsh = torch.where(run4, lsh_new, lsh)
-        r = torch.where(run4, r_new, r)
-        acc = torch.where(run4, acc_new, acc)
-        oc1 = torch.where(run4, oc1_new, oc1)
-        oc2 = torch.where(run4, oc2_new, oc2)
+            m = torch.where(run4, m_new, m)
+            l = torch.where(run4, l_new, l)
+            lsh = torch.where(run4, lsh_new, lsh)
+            r = torch.where(run4, r_new, r)
+            acc = torch.where(run4, acc_new, acc)
+            oc1 = torch.where(run4, oc1_new, oc1)
+            oc2 = torch.where(run4, oc2_new, oc2)
+        return m, l, lsh, r, acc, oc1, oc2, vmax
+
+    parts = [span(w) for w in range(warps)]
+    m, l, lsh, r, acc, oc1, oc2, vmax = (
+        parts[0] if warps == 1 else _merge_spans(parts))
 
     # ---- finalize: SNVR on l + unified output verification ----
     if ft:
@@ -414,8 +464,8 @@ def _lib():
     if not getattr(lib, "_efta_bound", False):
         lib.efta_paged_launch.argtypes = _ARGTYPES
         lib.efta_paged_launch.restype = ctypes.c_int
-        lib.efta_paged_tile_rows.argtypes = []
-        lib.efta_paged_tile_rows.restype = ctypes.c_int
+        lib.efta_paged_tiles.argtypes = [ctypes.c_int] * 8
+        lib.efta_paged_tiles.restype = ctypes.c_int
         lib.efta_paged_error_string.argtypes = [ctypes.c_int]
         lib.efta_paged_error_string.restype = ctypes.c_char_p
         lib._efta_bound = True
@@ -450,7 +500,13 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     ints = [t.to(device=dev, dtype=torch.int32).contiguous()
             for t in (block_tables, kv_lens, call.q_lens)]
     lib = _lib()
-    n_tiles = -(-R // lib.efta_paged_tile_rows())
+    # row tiles per (request, kv head): up to 4 groups of 16 rows each
+    n_tiles = lib.efta_paged_tiles(DTYPES[dtype], R, D, bs, cs, call.s_kv,
+                                   call.s_out, mb)
+    if n_tiles <= 0:
+        raise ValueError(f"efta_paged kernel: block {bs} (strides {cs}, "
+                         f"{call.s_kv}) x head_dim {D} has no tiling that "
+                         f"fits one thread block")
     out = torch.empty_like(qr)
     rep = torch.empty((B, hkv, n_tiles, 6), dtype=torch.int32, device=dev)
     bad = torch.empty((B, hkv, mb), dtype=torch.int32, device=dev)

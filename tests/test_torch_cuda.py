@@ -17,7 +17,7 @@ from _torch_util import cuda_or_skip, to_np  # noqa: E402
 
 from repro_torch.core import checksum as cks  # noqa: E402
 from repro_torch.core.efta import EFTAConfig  # noqa: E402
-from repro_torch.core.fault import Site  # noqa: E402
+from repro_torch.core.fault import Site, flip_bit_at  # noqa: E402
 from repro_torch.kernels.efta_paged import (  # noqa: E402
     efta_paged_attention, efta_paged_attention_torch)
 
@@ -36,7 +36,7 @@ def _bound(ref_out):
 
 
 def _case(dev, dtype, *, B=3, mb=4, bs=16, hkv=2, grp=2, hd=64, C=5,
-          seed=0):
+          seed=0, q_lens=None, full=False):
     g = torch.Generator().manual_seed(seed)
     nb = B * mb
     k = torch.randn((nb + 1, hkv, bs, hd), generator=g)
@@ -44,9 +44,14 @@ def _case(dev, dtype, *, B=3, mb=4, bs=16, hkv=2, grp=2, hd=64, C=5,
     q = torch.randn((B, hkv * grp, C, hd), generator=g)
     bt = torch.randperm(nb, generator=g).add(1).reshape(B, mb).int()
     lens = torch.randint(C, mb * bs + 1, (B,), generator=g).int()
+    if full:
+        lens[1] = mb * bs
     k, v, q = (x.to(dev, dtype) for x in (k, v, q))
     kc, vc = cks.encode_kv(k, 8), cks.encode_kv(v, 8)
-    return q, k, v, kc, vc, bt.to(dev), lens.to(dev)
+    args = [q, k, v, kc, vc, bt.to(dev), lens.to(dev)]
+    if q_lens is not None:
+        args.append(torch.tensor(q_lens, dtype=torch.int32, device=dev))
+    return args
 
 
 @pytest.mark.cuda
@@ -66,6 +71,54 @@ def test_kernel_matches_plain_version(dtype, site):
     np.testing.assert_array_equal(to_np(got.detected), to_np(plain.detected))
     np.testing.assert_array_equal(to_np(got.bad_blocks),
                                   to_np(plain.bad_blocks))
+
+
+# the redesign's cases: decode at grp 4 (one warp, 4 real rows of 16), a
+# C 64 step whose requests 1 and 2 are decode rows (their other 63 rows are
+# padding, computed and counted as the reference counts them) and request
+# 0 a half chunk, and a 64-block table walked to its end. The SEU strikes
+# request 1 in its first and its last block.
+B1_CASES = {
+    "decode_grp4": dict(grp=4, C=1, mb=8),
+    "mixed_c64": dict(grp=1, C=64, mb=8, q_lens=[32, 1, 1]),
+    "context_1024": dict(grp=1, C=1, mb=64, full=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(B1_CASES))
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+@pytest.mark.parametrize("mode", ["correct", "detect"])
+def test_kernel_redesign_cases(name, site, mode):
+    dev = cuda_or_skip()
+    args = _case(dev, torch.bfloat16, **B1_CASES[name])
+    cfg = EFTAConfig(mode=mode, stride=8, block_kv=16)
+    last = (int(args[6][1]) - 1) // 16
+    runs = [(None if site is None else [int(site), block, 1, 1, 0, 3, 27, 1],
+             args) for block in (0, last)]
+    if site is None:
+        # a resident flip (top bf16 exponent bit) in request 2's last block:
+        # every row of the request counts it, padding rows included
+        k = args[1].clone()
+        hkv, bs, hd = k.shape[1:]
+        blk = int(args[5][2, (int(args[6][2]) - 1) // 16])
+        flip_bit_at(k, ((blk * hkv + 1) * bs + 2) * hd + 5, 14)
+        runs = [(None, args), (None, [args[0], k, *args[2:]])]
+    for fault, a in runs:
+        got = efta_paged_attention(*a, cfg=cfg, fault=fault)
+        plain = efta_paged_attention_torch(*a, cfg=cfg, fault=fault)
+        ref = to_np(plain.out.float())
+        fin = np.isfinite(ref)
+        np.testing.assert_array_equal(np.where(fin, 0, to_np(got.out.float())),
+                                      np.where(fin, 0, ref))
+        diff = np.abs(to_np(got.out.float()) - ref)[fin]
+        assert (diff <= _bound(plain.out)[fin]).all(), \
+            f"max |kernel - plain| {diff.max():.3e} over its bound"
+        np.testing.assert_array_equal(to_np(got.detected),
+                                      to_np(plain.detected))
+        np.testing.assert_array_equal(to_np(got.bad_blocks),
+                                      to_np(plain.bad_blocks))
 
 
 # --- the fused contiguous EFTA kernel (efta_attention.cu) -------------------
@@ -147,3 +200,31 @@ def test_contiguous_kernel_variants(variant):
     for f in (None, fault):
         _same(efta_attention(q, k, v, cfg=cfg, fault=f, **kw),
               efta_attention_torch(q, k, v, cfg=cfg, fault=f, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bucket64", "bucket512", "gemma3"])
+@pytest.mark.parametrize("groups", [2, 1])
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+@pytest.mark.parametrize("mode", ["correct", "detect"])
+def test_contiguous_rows_per_block(variant, groups, site, mode, monkeypatch):
+    """The kernel at each choice of rows per thread block (2 or 1 groups of
+    16 rows), at the ring prefill's buckets and gemma3-1b's D 256, in
+    bf16."""
+    import importlib
+    dev = cuda_or_skip()
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.efta_attention"), "_MAX_GROUPS", groups)
+    shape = {"bucket64": dict(H=4, Hkv=4, Sq=64, Skv=64, D=64),
+             "bucket512": dict(H=2, Hkv=2, Sq=512, Skv=512, D=64),
+             "gemma3": dict(H=4, Hkv=1, Sq=256, Skv=1024, D=256)}[variant]
+    kw = dict(causal=True, window=512 if variant == "gemma3" else None)
+    q, k, v = _contig(dev, torch.bfloat16, **shape)
+    cfg = EFTAConfig(mode=mode)
+    bit = 30 if mode == "correct" else 27
+    row = shape["Sq"] - 1
+    fault = None if site is None else [int(site), row // 512, 1, row, 3, bit,
+                                       1, 0]
+    _same(efta_attention(q, k, v, cfg=cfg, fault=fault, **kw),
+          efta_attention_torch(q, k, v, cfg=cfg, fault=fault, **kw))
