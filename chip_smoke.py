@@ -66,6 +66,35 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              back-to-back calls, and the profiler's device time per call,
              with thread blocks of 32 and of 16 rows.
 10. ring_profile — the clean ring run under torch.profiler.
+11. spec_serve — speculative decoding on the fused backend: the n-gram
+             proposer at K 4, 8 slots, 16 requests of 64-512 tokens (half a
+             tiled 3-token pattern, half random), 32 new tokens, greedy, in
+             f32 (the config's dtype replaced) and in bf16. B1 launches 12 x
+             the forward passes with chunk widths 64 and 1; the f32 tokens
+             equal the plain fused run's except at near ties (the plain
+             run's top-2 gap under 1e-4 of max|logit| at the first
+             differing token); the bf16 share of equal tokens is reported.
+             Each dtype's faulted twin (EXP SEUs until one lands on a
+             speculating slot's scoring row, a resident flip, a flip
+             between the scoring step and the KV rollback through
+             ``_pre_rollback_hook``) detects and repairs all three and
+             emits its clean twin's tokens exactly.
+12. draft_serve — the draft-model proposer in f32: a self-draft on 4
+             requests x 16 tokens (acceptance > 0.9) and a cold draft on
+             2 x 8 (rolled-back rows > 0), tokens as the plain run's under
+             the near-tie rule.
+13. gather_serve — the gather backend in f32 on phase 4's prompts: under
+             kv_verify "always" its tokens equal a fused f32 run's (near
+             ties aside); a resident flip under "always", and one in the
+             block the scrub folds next under "stamped" with a scrub every
+             4 steps, are detected and repaired with the clean tokens;
+             stamped verification skips folds. No kernel launches there.
+
+Phases 11-13 report tokens/s, steps, forwards, B1 launches and the
+acceptance rate of runs without the profiler, and the device's busy share
+over a window of steps (profiler, CUDA activity) of one run each that is
+not timed: the bf16 faulted twin after its faults, the cold draft, the
+gather run with a flip after its repair.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script exits non-zero and prints no result line.
@@ -74,6 +103,7 @@ It exits non-zero as well where no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import importlib
 import json
@@ -874,7 +904,6 @@ def phase_kernel_b2(torch):
 # ---------------------------------------------------------------------------
 
 def ring_model(torch, mode="correct", impl="efta_pallas"):
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config(ARCH)
@@ -1140,6 +1169,408 @@ def phase_ring_profile(torch, np, ring):
                            / 1e3, "count": e.count} for e in top]})
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: speculation, the draft model and the gather backend
+# ---------------------------------------------------------------------------
+
+NEAR_TIE = 1e-4      # a plain run's top-2 gap under this share of max|logit|
+
+
+def paged_model(dtype):
+    """gpt2 at full width with the config's dtype replaced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(ARCH)
+    return build_model(dataclasses.replace(cfg, dtype=dtype), device=DEVICE)
+
+
+def model_params(torch, model, seed):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return model.init(gen)
+
+
+def mixed_prompts(np, vocab, seed):
+    """16 prompts of 64-512 tokens: even ones tile a random 3-token pattern
+    (the n-gram proposer's regime), odd ones are random."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(16):
+        t = int(rng.integers(64, 513))
+        if i % 2 == 0:
+            pat = rng.integers(0, vocab, (3,)).astype(np.int32)
+            out.append(np.tile(pat, -(-t // 3))[:t])
+        else:
+            out.append(rng.integers(0, vocab, (t,)).astype(np.int32))
+    return out
+
+
+def fused_engine(model, params, **kw):
+    from repro_torch.serve import PagedServeEngine
+    return PagedServeEngine(model, params, n_slots=8, block_size=16,
+                            chunk_size=64, chunk_budget=256, **dict(
+                                dict(kernel="fused"), **kw))
+
+
+class Margins:
+    """While installed, keeps for each slot the top-2 logit gap and max
+    |logit| of the row the last fused step (``Model.score`` over the paged
+    cache) sampled from."""
+
+    def __init__(self, torch, model):
+        self.last = None
+        orig = model.score
+
+        def score(params, tokens, cache, fault=None):
+            out = orig(params, tokens, cache, fault=fault)
+            logits = out[0]
+            idx = (cache.q_len.long() - 1).clamp(min=0)
+            rows = logits[torch.arange(logits.shape[0],
+                                       device=logits.device), idx]
+            top2 = rows.topk(2, dim=-1).values
+            self.last = list(zip((top2[:, 0] - top2[:, 1]).tolist(),
+                                 rows.abs().amax(dim=-1).tolist()))
+            return out
+
+        model.score = score
+        self.restore = lambda: model.__dict__.pop("score", None)
+
+
+def drive(torch, np, eng, prompts, n_new, *, faults_at=None,
+          before_step=None, margins=False, profile_steps=None):
+    """Submit ``prompts`` and step ``eng`` to the end. Returns tokens per
+    rid, wall seconds, steps, B1 launches (counted from 0 here), and, with
+    ``margins``, (gap, max|logit|) of the row each token was sampled from;
+    ``profile_steps`` (first, last) profiles that window of steps (CUDA
+    activity) for the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.efta_paged import efta_paged_attention
+    rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    mg = Margins(torch, eng.model) if margins else None
+    origin = {}
+    prof = busy = None
+    efta_paged_attention.launches = 0
+    i = 0
+    t_start = time.perf_counter()
+    while eng.scheduler.has_work:
+        if profile_steps and i == profile_steps[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        if before_step is not None:
+            before_step(eng, i)
+        before = {r.rid: (r.num_generated, r.slot)
+                  for r in eng.scheduler.active_rows()}
+        eng.step(faults=(faults_at or (lambda e, i: None))(eng, i))
+        if mg is not None:
+            for r in eng.scheduler.active_rows() + list(
+                    eng.scheduler.finished):
+                if r.rid in before and \
+                        r.num_generated == before[r.rid][0] + 1:
+                    origin[(r.rid, r.num_generated - 1)] = \
+                        mg.last[before[r.rid][1]]
+        if prof is not None and i == profile_steps[1]:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_prof) * 1e3
+            prof.__exit__(None, None, None)
+            dev_ms = sum(e.self_device_time_total
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA) / 1e3
+            busy = {"steps": list(profile_steps), "wall_ms": wall_ms,
+                    "device_ms": dev_ms, "device_busy_share":
+                    dev_ms / wall_ms}
+            prof = None
+        i += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    if mg is not None:
+        mg.restore()
+    check(prof is None, "profile window never closed")
+    outs = {r.rid: np.asarray(r.generated, np.int32)
+            for r in eng.scheduler.finished}
+    check(len(outs) == len(prompts) and all(
+        len(outs[r]) == n_new for r in rids), "not every request finished")
+    return dict(eng=eng, outs=[outs[r] for r in rids], wall=wall, steps=i,
+                launches=efta_paged_attention.launches, origin=origin,
+                busy=busy, tokens=len(prompts) * n_new)
+
+
+def gate_tokens(np, ref, got, what):
+    """``got``'s tokens against the plain run ``ref``'s: a divergence fails
+    unless the plain run's top-2 gap at the first differing token is under
+    ``NEAR_TIE`` of that row's max |logit| (f32 arithmetic that differs in
+    its last bits may flip such a tie). Returns the near ties seen."""
+    ties = []
+    for rid, (a, b) in enumerate(zip(ref["outs"], got["outs"])):
+        if np.array_equal(a, b):
+            continue
+        i = int(np.flatnonzero(a[:len(b)] != b[:len(a)])[0])
+        gap, mx = ref["origin"][(rid, i)]
+        check(gap < NEAR_TIE * mx,
+              f"{what}: request {rid} token {i} differs from the plain run "
+              f"({a[i]} vs {b[i]}), top-2 gap {gap:.3e} of max|logit| "
+              f"{mx:.3e} is no near tie")
+        ties.append({"request": rid, "token": i, "gap": gap,
+                     "gap_over_max": gap / mx})
+    return ties
+
+
+def same_share(np, a_outs, b_outs):
+    n = sum(len(a) for a in a_outs)
+    return sum(int((a == b).sum()) for a, b in zip(a_outs, b_outs)) / n
+
+
+def run_line(run):
+    eng = run["eng"]
+    return {"tokens_per_s": run["tokens"] / run["wall"], "wall_s": run["wall"],
+            "steps": eng.stats.steps, "forwards": eng.stats.forwards,
+            "b1_launches": run["launches"],
+            "acceptance_rate": eng.acceptance_rate,
+            "device_busy": run["busy"]}
+
+
+def check_b1(run, L, what):
+    """B1 launched once per layer of every forward, at widths 64 and 1."""
+    eng = run["eng"]
+    check(run["launches"] > 0 and run["launches"] == L * eng.stats.forwards,
+          f"{what}: {run['launches']} B1 launches for {eng.stats.forwards} "
+          f"forward passes")
+    check(eng.chunk_widths <= {1, 64},
+          f"{what}: chunk widths {sorted(eng.chunk_widths)}")
+
+
+def phase_spec_serve(torch, np, seed):
+    """Speculative decoding on the fused backend at gpt2 full width: the
+    n-gram proposer at K 4 on 16 mixed prompts. In f32 the tokens equal the
+    plain fused run's (near ties aside); in bf16 their share is reported.
+    Each dtype's faulted twin — EXP SEUs on a speculating slot's scoring
+    row, a resident flip, a flip between the scoring step and the rollback —
+    detects and repairs all three and emits its clean twin's tokens."""
+    from repro_torch.core.fault import FaultSpec, Site
+    from repro_torch.serve import batch_faults
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = paged_model(dtype)
+        params = model_params(torch, model, seed)
+        L = model.cfg.num_layers
+        prompts = mixed_prompts(np, model.cfg.vocab_size, seed + 11)
+        plain = drive(torch, np, fused_engine(model, params), prompts, 32,
+                      margins=True)
+        check_b1(plain, L, f"{dtype} plain")
+        spec = drive(torch, np, fused_engine(model, params, speculate="ngram",
+                                             draft_len=4), prompts, 32)
+        check_b1(spec, L, f"{dtype} spec")
+        ps = spec["eng"].paged_stats
+        check(ps.spec_steps > 0 and ps.spec_rolled_back_rows > 0,
+              f"{dtype} spec: {ps}")
+        check(spec["eng"].telemetry.summary()["detected"] == 0 and
+              ps.kv_detected_blocks == 0, f"{dtype} spec clean detections")
+        ties = (gate_tokens(np, plain, spec, f"{dtype} spec vs plain")
+                if dtype == "float32" else None)
+
+        # the faulted twin
+        top = 30 if dtype == "float32" else 14
+        state = {"seu_hit": None, "plan": None, "mid": False, "kv": False}
+
+        def faults_at(eng, i, state=state):
+            """An EXP SEU on row 0 of a decoding slot every step until one
+            lands on a step where that slot speculated (row 0 then scores
+            its first draft) and is detected."""
+            t = state.pop("target", None)
+            if t is not None:
+                st = eng.telemetry.requests[t[0]]
+                if st.draft_proposed > t[1] and \
+                        sum(st.detected[:5]) > t[2]:
+                    state["seu_hit"] = i - 1
+            if state["seu_hit"] is not None:
+                return None
+            dec = [r for r in eng.scheduler.active_rows()
+                   if not r.is_done() and r.slot is not None
+                   and r.num_generated > 0]
+            if not dec:
+                return None
+            r = dec[0]
+            st = eng.telemetry.requests[r.rid]
+            state["target"] = (r.rid, st.draft_proposed, sum(st.detected[:5]))
+            return batch_faults(8, {r.slot: FaultSpec.single(
+                Site.EXP, block=0, head=1, row=0, col=3, bit=27)})
+
+        def before_step(eng, i, state=state):
+            if i == 12:
+                live = [r for r in eng.scheduler.active_rows()
+                        if not r.is_done() and eng._pos[r.slot] > 16]
+                check(live, "no live request to strike with a KV flip")
+                eng.inject_kv_fault(layer=5, block=live[0].block_ids[0],
+                                    head=3, row=2, col=7, bit=top, into="k")
+                state["kv"] = True
+
+        eng = fused_engine(model, params, speculate="ngram", draft_len=4)
+        orig_rollback = eng._apply_rollback
+
+        def apply_rollback(plan, by_slot, state=state):
+            state["plan"] = plan
+            return orig_rollback(plan, by_slot)
+
+        def mid_rollback(e, state=state):
+            if state["mid"]:
+                return
+            for slot, (keep, _) in sorted(state["plan"].items()):
+                if keep % e.block_size:
+                    req = next(r for r in e.scheduler.active_rows()
+                               if r.slot == slot)
+                    e.inject_kv_fault(
+                        layer=2, block=req.block_ids[keep // e.block_size],
+                        head=4, row=keep % e.block_size - 1, col=9, bit=top,
+                        into="v")
+                    state["mid"] = True
+                    return
+
+        eng._apply_rollback = apply_rollback
+        eng._pre_rollback_hook = mid_rollback
+        # the busy share is read in the faulted twin, after its faults, so
+        # the profiler does not slow the clean runs whose tokens/s count
+        faulted = drive(torch, np, eng, prompts, 32, faults_at=faults_at,
+                        before_step=before_step, profile_steps=(20, 27))
+        check_b1(faulted, L, f"{dtype} faulted spec")
+        fps = eng.paged_stats
+        check(state["seu_hit"] is not None and state["mid"] and state["kv"],
+              f"{dtype}: not every fault struck: {state}")
+        check(fps.rollback_detected_blocks >= 1 and
+              fps.kv_detected_blocks >= 2 and fps.kv_repaired_blocks >= 2,
+              f"{dtype} faulted: {fps}")
+        for rid, (a, b) in enumerate(zip(spec["outs"], faulted["outs"])):
+            check(np.array_equal(a, b), f"{dtype} faulted spec run's tokens "
+                  f"differ from its clean twin's for request {rid}")
+        out[dtype] = {
+            "plain": run_line(plain), "spec": run_line(spec),
+            "near_ties": ties,
+            "spec_same_as_plain": same_share(np, plain["outs"],
+                                             spec["outs"]),
+            "spec_stats": dataclasses.asdict(ps),
+            "faulted": {"seu_step": state["seu_hit"],
+                        "stats": dataclasses.asdict(fps),
+                        "forwards": eng.stats.forwards,
+                        "retries": eng.stats.retries,
+                        "device_busy": faulted["busy"]}}
+        if dtype == "bfloat16":
+            spec_b16 = spec
+    emit({"phase": "spec_serve", "ok": True, "arch": ARCH, "requests": 16,
+          "new_tokens": 32, "draft_len": 4, **out})
+    return spec_b16
+
+
+def phase_draft_serve(torch, np, seed):
+    """The draft-model proposer in f32: a self-draft (the target's own
+    weights) on 4 requests x 16 tokens, acceptance > 0.9, and a cold draft
+    (other weights) on 2 x 8, whose rejections roll back; both give the
+    plain run's tokens (near ties aside). The draft model runs plain EFTA on
+    per-slot ring caches, the target B1."""
+    model = paged_model("float32")
+    params = model_params(torch, model, seed)
+    cold = model_params(torch, model, seed + 1)
+    L = model.cfg.num_layers
+    prompts = mixed_prompts(np, model.cfg.vocab_size, seed + 11)[:4]
+    res = {}
+    for name, dparams, n_req, n_new in (("self", params, 4, 16),
+                                        ("cold", cold, 2, 8)):
+        plain = drive(torch, np, fused_engine(model, params),
+                      prompts[:n_req], n_new, margins=True)
+        eng = fused_engine(model, params, speculate="draft", draft_len=4,
+                           draft_model=model, draft_params=dparams)
+        run = drive(torch, np, eng, prompts[:n_req], n_new,
+                    profile_steps=(2, 5) if name == "cold" else None)
+        check_b1(run, L, f"draft {name}")
+        ties = gate_tokens(np, plain, run, f"draft {name} vs plain")
+        ps = eng.paged_stats
+        if name == "self":
+            check(eng.acceptance_rate > 0.9,
+                  f"self-draft acceptance {eng.acceptance_rate:.3f}")
+        else:
+            check(ps.spec_rolled_back_rows > 0, f"cold draft: {ps}")
+        check(eng.telemetry.summary()["detected"] == 0, "draft detections")
+        res[name] = dict(run_line(run), near_ties=ties, plain=run_line(plain),
+                         draft_forwards=eng._proposer.forwards,
+                         rolled_back_rows=ps.spec_rolled_back_rows,
+                         requests=n_req, new_tokens=n_new)
+    emit({"phase": "draft_serve", "ok": True, "arch": ARCH, **res})
+
+
+def phase_gather_serve(torch, np, serve):
+    """The gather backend in f32 on phase 4's prompts (16 requests, 32 new
+    tokens): under kv_verify "always" its tokens equal the fused backend's
+    (near ties aside); its faulted twin with a resident flip detects,
+    repairs and emits the same tokens; under "stamped" with a scrub every 4
+    steps a flip in the verified, untouched block the scrub folds next is
+    caught and repaired, folds are skipped, and the tokens are the same.
+    No kernel runs: the
+    gather backend decodes with plain EFTA, as the JAX package's does."""
+    from repro_torch.kernels.efta_attention import efta_attention
+    model = paged_model("float32")
+    params = model_params(torch, model, 0)
+    prompts = serve["prompts"]
+    fused = drive(torch, np, fused_engine(model, params), prompts, 32,
+                  margins=True)
+    check_b1(fused, model.cfg.num_layers, "f32 fused")
+    efta_attention.launches = 0
+    always = drive(torch, np, fused_engine(model, params, kernel="gather"),
+                   prompts, 32)
+    ties = gate_tokens(np, fused, always, "gather vs fused")
+    check(always["launches"] == 0 and efta_attention.launches == 0,
+          "gather backend launched a kernel")
+    check(always["eng"].paged_stats.kv_detected_blocks == 0,
+          "gather clean detections")
+
+    def flip_at(step, oldest):
+        """Strike block 1 of a live request at ``step``; with ``oldest``,
+        the live full block verified longest ago instead — the one the next
+        scrub pass folds first (the stamped selector skips it: it is
+        verified and untouched)."""
+        def before_step(eng, i):
+            if i != step:
+                return
+            live = [r for r in eng.scheduler.active_rows()
+                    if not r.is_done() and eng._pos[r.slot] > 32]
+            check(live, "no live request to strike")
+            req, j = live[0], 1
+            if oldest:
+                bs = eng.block_size
+                req, j = min(((r, j) for r in live
+                              for j in range(int(eng._pos[r.slot]) // bs)),
+                             key=lambda rj: eng.pool.blocks.verified_at(
+                                 rj[0].block_ids[rj[1]]))
+            eng.inject_kv_fault(layer=4, block=req.block_ids[j], head=2,
+                                row=5, col=11, bit=30, into="k")
+        return before_step
+
+    runs = {}
+    for name, kw, step, oldest in (
+            ("always_flip", {}, 5, False),
+            ("stamped_scrub", dict(kv_verify="stamped", scrub_interval=4),
+             6, True)):
+        eng = fused_engine(model, params, kernel="gather", **kw)
+        run = drive(torch, np, eng, prompts, 32,
+                    before_step=flip_at(step, oldest),
+                    profile_steps=None if oldest else (20, 27))
+        ps = eng.paged_stats
+        check(ps.kv_detected_blocks >= 1 and ps.kv_repaired_blocks >= 1,
+              f"gather {name}: flip not detected and repaired: {ps}")
+        if name == "stamped_scrub":
+            check(ps.kv_verify_skips > 0 and ps.kv_scrubbed_blocks > 0 and
+                  ps.kv_verified_blocks < always["eng"].paged_stats.
+                  kv_verified_blocks, f"gather {name}: {ps}")
+        for rid, (a, b) in enumerate(zip(always["outs"], run["outs"])):
+            check(np.array_equal(a, b), f"gather {name}: tokens differ from "
+                  f"the clean always run for request {rid}")
+        runs[name] = dict(run_line(run), stats=dataclasses.asdict(ps))
+    emit({"phase": "gather_serve", "ok": True, "arch": ARCH, "requests": 16,
+          "new_tokens": 32, "fused_f32": run_line(fused),
+          "always": dict(run_line(always),
+                         stats=dataclasses.asdict(always["eng"].paged_stats)),
+          "near_ties": ties, **runs})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1160,6 +1591,10 @@ def main(argv=None) -> int:
     ring = phase_ring_serve(torch, np, serve, args.seed)
     entry_b2 = phase_numbers_b2(torch, np, ring, max_err_b2)
     phase_ring_profile(torch, np, ring)
+    spec = phase_spec_serve(torch, np, args.seed)
+    entry["spec_launches"] = spec["launches"]
+    phase_draft_serve(torch, np, args.seed)
+    phase_gather_serve(torch, np, serve)
     emit({"kernels": [entry, entry_b2]})   # the line before the last
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Core EFTA library: fault model, checksum algebra, configuration and the
-plain-PyTorch EFTA attention."""
+"""Core EFTA library: fault model, checksum algebra, configuration, the
+plain-PyTorch EFTA attention and the SEU campaigns."""
 from repro_torch.core.checksum import (LOG_PROD_FLOOR, Checksums, Verdict,
                                        block_fold_bad, encode_cols, encode_kv,
                                        encode_kv_tile, fold1, fold2, foldprod,
@@ -11,3 +11,6 @@ from repro_torch.core.efta import (MASK_VALUE, EFTAConfig, FTReport,
                                    reference_attention)
 from repro_torch.core.fault import (FaultSpec, Site, flip_bit_at, inject,
                                     random_fault)
+from repro_torch.core.campaign import (DEFAULT_SITES, CampaignResult,
+                                       KVCampaignResult, SiteTally,
+                                       run_campaign, run_kv_campaign)

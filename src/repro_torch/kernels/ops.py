@@ -10,6 +10,11 @@
 The names are the JAX package's (``efta_pallas`` was its Pallas kernel).
 Every implementation returns ``(out, FTReport)`` with per-row (B, 5)
 counts.
+
+``gather_block_kv`` materializes a paged pool's block tables into the
+contiguous per-request layout above: the paged engine's ``gather`` backend
+decodes over it with plain EFTA and folds the resident block checksums of
+the raw gathered blocks outside any kernel. It is plain indexing.
 """
 from __future__ import annotations
 
@@ -74,6 +79,28 @@ def attention(q, k, v, *, impl: str = "efta",
             det, det if cfg.mode == "correct" else torch.zeros_like(det),
             torch.zeros((3,), dtype=torch.float32, device=q.device))
     raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+
+
+def merge_block_axes(x: torch.Tensor) -> torch.Tensor:
+    """(L, ..., mb, Hkv, bs, hd) gathered blocks -> (L, ..., Hkv, mb*bs, hd)
+    contiguous KV layout (table order becomes token order)."""
+    x = x.transpose(-4, -3)
+    return x.reshape(*x.shape[:-3], x.shape[-3] * x.shape[-2], x.shape[-1])
+
+
+def gather_block_kv(pool: torch.Tensor, block_table: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather a paged pool tensor by block table.
+
+    ``pool``: (L, num_blocks, Hkv, bs, hd); ``block_table``: integer block
+    ids of shape (mb,) or (n_slots, mb), null-padded with block 0. Returns
+    both views of the one gather, as new tensors (writing to them leaves
+    the pool alone): the raw block layout ``(L[, n_slots], mb, Hkv, bs,
+    hd)`` that checksum verification folds over, and the contiguous
+    per-request view ``(L[, n_slots], Hkv, mb*bs, hd)`` that attention
+    consumes."""
+    raw = pool[:, block_table.long()]
+    return raw, merge_block_axes(raw)
 
 
 def _nonzero(q_offset) -> bool:

@@ -7,9 +7,15 @@ default, the checksummed paged engine with ``--paged``.
   python -m repro_torch.launch.serve --arch gpt2 --paged --kernel fused
   python -m repro_torch.launch.serve --arch gpt2-smoke --paged --kernel fused \\
       --device cpu --requests 4 --slots 2 --gen 6 --inject-faults 2 --kv-flips 1
+  python -m repro_torch.launch.serve --arch gpt2 --speculate ngram --kernel fused
+  python -m repro_torch.launch.serve --arch gpt2-smoke --device cpu \\
+      --speculate draft --draft-len 4 --kernel gather
+  python -m repro_torch.launch.serve --arch gpt2 --paged --kernel gather \\
+      --kv-verify stamped --scrub-interval 4 --kv-flips 2
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``--speculate`` implies ``--paged``; the paged
+backend defaults to ``gather``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,7 +45,36 @@ def main(argv=None):
     ap.add_argument("--attn-impl", choices=IMPLS, default=None,
                     help="override the config's attention implementation "
                          "(ring engine; efta_pallas = the fused kernel)")
-    ap.add_argument("--kernel", choices=("fused",), default="fused")
+    ap.add_argument("--kernel", choices=("gather", "fused"), default=None,
+                    help="paged backend: 'gather' materializes each table as "
+                         "a contiguous view and verifies checksums outside "
+                         "attention (default); 'fused' consumes block tables "
+                         "in the paged EFTA kernel with in-loop verification")
+    ap.add_argument("--kv-verify", choices=("always", "stamped"),
+                    default="always",
+                    help="gather-backend read-time verify policy: 'stamped' "
+                         "skips blocks untouched since their last verified "
+                         "read (detection of a flip there waits for the "
+                         "block's next write or the next scrub pass)")
+    ap.add_argument("--scrub-interval", type=int, default=0,
+                    help="with --kv-verify stamped: re-fold the oldest-"
+                         "verified blocks every N committed steps (0 = off)")
+    ap.add_argument("--scrub-batch", type=int, default=4,
+                    help="blocks re-folded per scrub pass")
+    ap.add_argument("--speculate", choices=("off", "ngram", "draft"),
+                    default="off",
+                    help="speculative decoding through the propose→score→"
+                         "accept step (implies --paged): 'ngram' self-drafts "
+                         "by prompt lookup, 'draft' decodes a draft model "
+                         "(--draft-model) through the same EFTA path; "
+                         "rejected rows roll back with checksum-verified "
+                         "truncation")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="max draft tokens proposed per request per step")
+    ap.add_argument("--draft-model", default="",
+                    help="arch of the draft model for --speculate draft "
+                         "(default: the serving arch with its weights — "
+                         "self-drafting, acceptance ~1)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-prompt", type=int, default=24)
@@ -63,8 +98,17 @@ def main(argv=None):
                     help="override the config's EFTA mode (off/detect/correct)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.kv_flips and not args.paged:
-        ap.error("--kv-flips strikes the paged block pool; add --paged")
+    if args.speculate != "off":
+        args.paged = True              # the propose→score→accept step is
+        #                                the paged engine's contract
+    if not args.paged and (args.kernel is not None
+                           or args.kv_verify != "always"
+                           or args.chunk_size or args.chunk_budget
+                           or args.scrub_interval or args.kv_flips):
+        ap.error("--kernel/--kv-verify/--chunk-size/--chunk-budget/"
+                 "--scrub-interval/--kv-flips configure the paged engine; "
+                 "add --paged")
+    args.kernel = args.kernel or "gather"
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("repro_torch.serve")
 
@@ -81,13 +125,32 @@ def main(argv=None):
     params = model.init(gen)
     rng = np.random.default_rng(args.seed)
     if args.paged:
+        draft_model = draft_params = None
+        if args.speculate == "draft":
+            dcfg = get_config(args.draft_model or args.arch)
+            if args.ft_mode:
+                dcfg = dataclasses.replace(
+                    dcfg, ft=dataclasses.replace(dcfg.ft, mode=args.ft_mode))
+            draft_model = build_model(dcfg, device=args.device)
+            if not args.draft_model or args.draft_model == args.arch:
+                draft_params = params      # self-drafting: share weights
+            else:
+                dgen = torch.Generator(device=draft_model.device)
+                dgen.manual_seed(args.seed + 1)
+                draft_params = draft_model.init(dgen)
         eng = PagedServeEngine(model, params, n_slots=args.slots,
                                cache_len=args.cache_len or None,
                                block_size=args.block_size,
                                num_blocks=args.num_blocks or None,
                                chunk_size=args.chunk_size or None,
                                chunk_budget=args.chunk_budget or None,
-                               kernel=args.kernel)
+                               kernel=args.kernel, kv_verify=args.kv_verify,
+                               scrub_interval=args.scrub_interval,
+                               scrub_batch=args.scrub_batch,
+                               speculate=args.speculate,
+                               draft_len=args.draft_len,
+                               draft_model=draft_model,
+                               draft_params=draft_params)
     else:
         eng = ServeEngine(model, params, n_slots=args.slots,
                           cache_len=args.cache_len or None)
@@ -143,12 +206,23 @@ def main(argv=None):
              summ["detected"], summ["retries"], summ["status"])
     if args.paged:
         ps, xs = eng.paged_stats, eng.pool.prefix.stats
-        log.info("paged cache: prefix hits=%d/%d tokens, kv detected=%d "
-                 "repaired=%d preemptions=%d chunked-prefill tokens=%d "
-                 "chunk widths=%s", xs.hit_tokens, xs.lookup_tokens,
-                 ps.kv_detected_blocks, ps.kv_repaired_blocks,
-                 ps.preemptions, ps.chunked_prefill_tokens,
-                 sorted(eng.chunk_widths))
+        log.info("paged cache (%s): prefix hits=%d/%d tokens, kv "
+                 "detected=%d repaired=%d verified=%d verify-skips=%d "
+                 "scrubbed=%d preemptions=%d chunked-prefill tokens=%d "
+                 "chunk widths=%s", args.kernel, xs.hit_tokens,
+                 xs.lookup_tokens, ps.kv_detected_blocks,
+                 ps.kv_repaired_blocks, ps.kv_verified_blocks,
+                 ps.kv_verify_skips, ps.kv_scrubbed_blocks, ps.preemptions,
+                 ps.chunked_prefill_tokens, sorted(eng.chunk_widths))
+        if args.speculate != "off":
+            log.info("speculation (%s): acceptance=%.2f (%d/%d drafts), "
+                     "spec steps=%d, tokens/step=%.2f, rolled-back rows=%d, "
+                     "rollback-guard detections=%d",
+                     args.speculate, eng.acceptance_rate,
+                     ps.spec_accepted_tokens, ps.spec_proposed_tokens,
+                     ps.spec_steps,
+                     eng.stats.tokens / max(eng.stats.steps, 1),
+                     ps.spec_rolled_back_rows, ps.rollback_detected_blocks)
     else:
         log.info("ring cache: %d prefills (%d prompt forwards), attention "
                  "%s", eng.stats.prefills, eng.stats.prefill_forwards,

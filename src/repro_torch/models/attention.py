@@ -7,7 +7,8 @@ as the attention implementation, over three kinds of KV:
     ring, with each slot's absolute position reconstructed so causal and
     sliding-window masks stay exact after wraparound;
   * the paged, checksummed :class:`PagedKVCache` of the paged serve engine,
-    through the fused paged kernel.
+    through the fused paged kernel; :func:`paged_rollback` truncates the
+    rows a speculative step scored and the acceptance stage rejected.
 
 Contiguous attention dispatches through :func:`repro_torch.kernels.ops.
 attention` on ``FTCfg.attn_impl``; ``efta_pallas`` (the fused contiguous
@@ -131,9 +132,10 @@ def _paged_chunk(q, k, v, cache: PagedKVCache, *, cfg: EFTAConfig, window,
     Unlike the JAX package's functional ``.at[].set``, the pools are updated
     IN PLACE. A step the engine retries re-appends the same rows at the same
     positions and restamps the same blocks, so the pool after a retry equals
-    the pool of a clean run; a block flagged bad is re-prefilled by the
-    engine before anything is committed, which also overwrites a laundered
-    restamp. Returns (out (B, H, C, hd), FTReport with (B, 5) counts,
+    the pool of a clean run. A first block the guard flags is not restamped,
+    so it stays flagged until the engine re-prefills it (which restamps it):
+    if the repair does not hold, every retry sees the corruption again.
+    Returns (out (B, H, C, hd), FTReport with (B, 5) counts,
     bad (B, table_len) int32).
     """
     bs = cache.k.shape[2]
@@ -171,11 +173,14 @@ def _paged_chunk(q, k, v, cache: PagedKVCache, *, cfg: EFTAConfig, window,
     cache.v[tgt_rows, :, offs, :] = v.transpose(1, 2).to(cache.v.dtype)
 
     # -- checksums for exactly the blocks the chunk touched (the first may
-    # be partial, the rest start at row 0; untouched -> null block)
+    # be partial, the rest start at row 0; untouched -> null block). A first
+    # block the guard flagged keeps its old checksums: restamping it here,
+    # in place, would make the corruption consistent for the retry.
     nt = (c_width + bs - 2) // bs + 1      # most blocks a C-row chunk spans
     jt = j0[:, None] + torch.arange(nt, device=dev)[None, :]   # (B, nt)
     last = (pos + q_len.clamp(min=1) - 1) // bs
-    touched = (jt <= last[:, None]) & (q_len[:, None] > 0)
+    touched = ((jt <= last[:, None]) & (q_len[:, None] > 0)
+               & ~((jt == j0[:, None]) & tail_bad[:, None]))
     tid = torch.where(touched, bt.gather(1, jt.clamp(0, mb - 1)), 0)
     kc = cks.encode_kv(cache.k[tid], cs)               # (B, nt, Hkv, cs, hd)
     vc = cks.encode_kv(cache.v[tid], cs)
@@ -200,6 +205,89 @@ def _paged_chunk(q, k, v, cache: PagedKVCache, *, cfg: EFTAConfig, window,
         corrected=det if cfg.mode == "correct" else torch.zeros_like(det),
         max_delta=torch.zeros((3,), dtype=torch.float32, device=dev))
     return rep.out, report, bad
+
+
+def paged_rollback(k, v, kc1, kc2, vc1, vc2, bt, keep_pos, old_pos, *,
+                   check_stride: int, threshold: float) -> torch.Tensor:
+    """Fault-tolerant KV rollback: truncate rejected speculative rows, in
+    place.
+
+    The propose→score→accept step appends every scored chunk row's K/V into
+    the paged block pool before the acceptance verdict exists (append
+    before attend). When the target rejects a draft suffix, rows
+    ``keep_pos[b] .. old_pos[b] - 1`` of request ``b`` are junk: this zeroes
+    them (``kv_len`` truncation, the zero-padded partial block convention of
+    the scatter path) and regenerates the touched tail blocks' checksums
+    over the truncated content.
+
+    Laundering guard: restamping a checksum from the current content of a
+    block corrupted between the scoring step's verify and this rollback
+    would make the corruption permanently undetectable. So every touched
+    block is first verified against its **pre-rollback** checksums; the
+    returned ``bad`` plane flags mismatches, and the engine re-prefills
+    those blocks.
+
+    ``k``/``v``: (L, num_blocks+1, Hkv, bs, hd) pools (row 0 = null block);
+    ``kc1..vc2`` their resident checksum planes; ``bt`` (B, mb) block
+    tables; ``keep_pos``/``old_pos`` (B,) with ``keep_pos <= old_pos``.
+    Slots with ``keep_pos == old_pos`` are untouched. Touched blocks are
+    private tail blocks (shared ones were copy-on-write split before the
+    speculative append), so no two slots roll back the same block. The JAX
+    package sizes the touched-block window by a static ``max_span``; here it
+    is the largest span of this call, which gives the same result. Returns
+    ``bad`` (B, mb) int32.
+    """
+    bs = k.shape[3]
+    mb = bt.shape[1]
+    cs = kc1.shape[3]
+    dev = k.device
+    bt = bt.long()
+    keep = keep_pos.long()
+    old = old_pos.long()
+    bad = torch.zeros(bt.shape, dtype=torch.int32, device=dev)
+    span = int((old - keep).max()) if keep.numel() else 0
+    if span <= 0:
+        return bad
+    nt = (span + bs - 2) // bs + 1         # most blocks a rollback touches
+    j0 = keep // bs
+    jt = j0[:, None] + torch.arange(nt, device=dev)[None, :]       # (B, nt)
+    last = (torch.maximum(old, keep + 1) - 1) // bs
+    touched = (jt <= last[:, None]) & (old > keep)[:, None]
+    jc = jt.clamp(0, mb - 1)
+    tid = torch.where(touched, bt.gather(1, jc), 0)
+
+    # -- laundering guard: verify against the PRE-rollback checksums first
+    bad_k, _ = cks.verify_block(
+        k[:, tid], cks.Checksums(kc1[:, tid], kc2[:, tid]), cs,
+        threshold=threshold)
+    bad_v, _ = cks.verify_block(
+        v[:, tid], cks.Checksums(vc1[:, tid], vc2[:, tid]), cs,
+        threshold=threshold)
+    bad_t = (bad_k | bad_v).any(dim=0).any(dim=-1) & (tid > 0)    # (B, nt)
+    b_idx = torch.arange(bt.shape[0], device=dev)[:, None].expand_as(jc)
+    bad.index_put_((b_idx, jc), bad_t.to(torch.int32), accumulate=True)
+    bad = (bad > 0).to(torch.int32)
+
+    # -- truncate: zero exactly the rejected rows of the touched blocks
+    rows_abs = jt[:, :, None] * bs + torch.arange(bs, device=dev)
+    kill = ((rows_abs >= keep[:, None, None]) & (rows_abs < old[:, None, None])
+            & touched[:, :, None])                                 # (B,nt,bs)
+    kmask = kill[None, :, :, None, :, None]
+    kb = torch.where(kmask, torch.zeros((), dtype=k.dtype, device=dev),
+                     k[:, tid])
+    vb = torch.where(kmask, torch.zeros((), dtype=v.dtype, device=dev),
+                     v[:, tid])
+    k[:, tid] = kb
+    v[:, tid] = vb
+
+    # -- restamp the touched blocks' checksums over the truncated content
+    ck = cks.encode_kv(kb, check_stride)
+    cv = cks.encode_kv(vb, check_stride)
+    kc1[:, tid] = ck.c1
+    kc2[:, tid] = ck.c2
+    vc1[:, tid] = cv.c1
+    vc2[:, tid] = cv.c2
+    return bad
 
 
 def _split_heads(x, n_heads, head_dim):

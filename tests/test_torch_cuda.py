@@ -228,3 +228,77 @@ def test_contiguous_rows_per_block(variant, groups, site, mode, monkeypatch):
                                        1, 0]
     _same(efta_attention(q, k, v, cfg=cfg, fault=fault, **kw),
           efta_attention_torch(q, k, v, cfg=cfg, fault=fault, **kw))
+
+
+# --- a speculative scoring step and its KV rollback ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flip", [False, True])
+def test_spec_step_and_rollback_match_plain(dtype, flip):
+    """One layer's speculative scoring step on the card — a C 64 chunk with
+    slots feeding 1 + 4 rows (pending token + drafts), 1 row (a plain
+    decode riding along) and none — then ``paged_rollback`` of the rejected
+    rows, against the same step and rollback on the CPU's plain path. The
+    outputs agree within ``_bound``; the pools and checksums are equal (the
+    appended rows are copies, the two-segment folds exact); the bad planes
+    and the zeroed rows are equal. With ``flip``, a committed row of a
+    rolled-back block is struck between the two: the guard flags it on
+    both."""
+    from repro_torch.models.attention import (PagedKVCache, _paged_chunk,
+                                              paged_rollback)
+    dev = cuda_or_skip()
+    g = torch.Generator().manual_seed(3)
+    B, hkv, grp, hd, bs, mb, C, K = 4, 2, 2, 64, 16, 8, 64, 4
+    nb = B * mb
+    pos = torch.tensor([37, 20, 47, 0], dtype=torch.int32)
+    q_len = torch.tensor([1 + K, 1, 1 + K, 0], dtype=torch.int32)
+    keep = pos + torch.tensor([1 + 2, 1, 1, 0], dtype=torch.int32)
+    k = torch.randn((1, nb + 1, hkv, bs, hd), generator=g)
+    v = torch.randn((1, nb + 1, hkv, bs, hd), generator=g)
+    bt = torch.randperm(nb, generator=g).add(1).reshape(B, mb).int()
+    q = torch.randn((B, hkv * grp, C, hd), generator=g)
+    kn = torch.randn((B, hkv, C, hd), generator=g)
+    vn = torch.randn((B, hkv, C, hd), generator=g)
+    cfg = EFTAConfig(mode="correct", stride=8, block_kv=16)
+    thr = cks.kv_block_threshold(dtype)
+    res = {}
+    for d in ("cpu", dev):
+        kk, vv = k.to(d, dtype), v.to(d, dtype)
+        kc, vc = cks.encode_kv(kk, 8), cks.encode_kv(vv, 8)
+        pool = [kk, vv, kc.c1, kc.c2, vc.c1, vc.c2]
+        cache = PagedKVCache(*pool, bt=bt.to(d), pos=pos.to(d),
+                             q_len=q_len.to(d),
+                             bad=torch.zeros((B, mb), dtype=torch.int32,
+                                             device=d))
+        out, rep, bad = _paged_chunk(
+            q.to(d, dtype), kn.to(d, dtype), vn.to(d, dtype), cache.layer(0),
+            cfg=cfg, window=None, sm_scale=None, fault=None)
+        if flip:
+            # slot 0 keeps 40 rows: row 39 sits in block 2, which the
+            # rollback of rows 40..41 touches
+            blk = int(bt[0, 2])
+            flip_bit_at(pool[0], ((blk * hkv + 1) * bs + 7) * hd + 5,
+                        14 if dtype == torch.bfloat16 else 30)
+        rb = paged_rollback(*pool, bt.to(d), keep.to(d), (pos + q_len).to(d),
+                            check_stride=8, threshold=thr)
+        res[d if d == "cpu" else "cuda"] = (out, rep, bad, rb, pool)
+    out_c, rep_c, bad_c, rb_c, pool_c = res["cuda"]
+    out_p, rep_p, bad_p, rb_p, pool_p = res["cpu"]
+    valid = (torch.arange(C)[None, :] < q_len[:, None])[:, None, :, None]
+    diff = np.abs(to_np(out_c.float().cpu()) - to_np(out_p.float()))
+    bound = _bound(out_p)
+    assert (diff <= bound)[to_np(valid.expand_as(out_p))].all(), \
+        f"max |kernel - plain| {diff.max():.3e} over its bound"
+    np.testing.assert_array_equal(to_np(rep_c.detected), to_np(rep_p.detected))
+    np.testing.assert_array_equal(to_np(bad_c), to_np(bad_p))
+    np.testing.assert_array_equal(to_np(rb_c), to_np(rb_p))
+    assert int(rb_p.sum()) == (1 if flip else 0)
+    for a, b in zip(pool_c, pool_p):      # block 0 is the padding scratch
+        np.testing.assert_array_equal(to_np(a[:, 1:].float().cpu()),
+                                      to_np(b[:, 1:].float()))
+    # the rejected rows are zero: slot 0 rows 40..41, slot 2 rows 48..51
+    kz = pool_p[0][0]
+    assert not bool(kz[int(bt[0, 2]), :, 8:10].any())
+    assert not bool(kz[int(bt[2, 3]), :, 0:4].any())
+    assert bool(kz[int(bt[2, 2]), :, 15].any())     # slot 2 row 47 kept

@@ -160,12 +160,43 @@ def test_plan_chunks_decodes_never_starve_and_budget_is_fcfs():
 
 
 def test_engine_refuses_unported_backends(setup):
+    """Every backend is ported now: the port's engine accepts every setting
+    the JAX engine accepts, and rejects with the reference's ValueError
+    (and message) exactly the settings the reference rejects — never with
+    NotImplementedError."""
     cfg, tm, tp, _, _ = setup
-    for kw in ({"kernel": "gather"}, {"kv_verify": "stamped"},
-               {"scrub_interval": 2}, {"speculate": "ngram"}):
-        args = dict(n_slots=2, cache_len=48, block_size=16, **kw)
-        with pytest.raises(NotImplementedError):
-            PagedServeEngine(tm, tp, **args)
+    jm = jbuild(jget("gpt2-smoke"))
+    jp = jm.init(jax.random.PRNGKey(0))
+    accepted = [{"kernel": "gather"}, {"kernel": "fused"},
+                {"kv_verify": "stamped"},
+                {"kv_verify": "stamped", "scrub_interval": 2,
+                 "scrub_batch": 2},
+                {"speculate": "ngram", "draft_len": 3},
+                {"kernel": "fused", "speculate": "ngram", "draft_len": 99},
+                {"speculate": "draft", "draft_len": 2, "draft_model": True},
+                {"check_threshold": 1e-2}]
+    rejected = [{"kernel": "paged"}, {"kv_verify": "never"},
+                {"kernel": "fused", "scrub_interval": 2},
+                {"speculate": "medusa"},
+                {"speculate": "ngram", "draft_len": 0},
+                {"speculate": "draft"}, {"chunk_size": 8},
+                {"block_size": 0}, {"check_stride": 3},
+                {"block_size": 1, "chunk_size": 1, "speculate": "ngram"}]
+    for kw in accepted + rejected:
+        args = dict(dict(n_slots=2, cache_len=48, block_size=16), **kw)
+        errors = []
+        for cls, m, p in ((JPagedServeEngine, jm, jp),
+                          (PagedServeEngine, tm, tp)):
+            a = dict(args)
+            if a.get("draft_model"):
+                a.update(draft_model=m, draft_params=p)
+            try:
+                cls(m, p, **a)
+                errors.append(None)
+            except ValueError as e:
+                errors.append(str(e))
+        assert errors[0] == errors[1], (kw, errors)
+        assert (errors[1] is None) == (kw in accepted), (kw, errors)
 
 
 def test_sampling_greedy_exact_and_per_request_streams():
