@@ -9,7 +9,10 @@ Given a fold with ``g = width // s`` segments:
 For ``S = Q @ K^T``, ``fold1(S) = Q @ encode_kv(K).c1^T``: checksums of the
 inputs predict folds of the output, and a mismatch localizes and corrects a
 single error per (row, fold column). Resident KV blocks carry an
-``encode_kv`` pair written on append and re-folded at read time.
+``encode_kv`` pair written on append and re-folded at read time. The
+traditional rank-1 helpers at the end (one unweighted and one
+index-weighted checksum per row) serve the decoupled baseline and the
+classic ABFT of linear layers.
 
 Every fold accumulates in float32; checksums stored beside data are rounded
 ONCE to the storage dtype, exactly as the JAX package does.
@@ -210,3 +213,60 @@ def verify_product(p: torch.Tensor, p_check1: torch.Tensor, stride: int, *,
     ref = torch.clamp(chk.abs(), min=floor)
     bad = (foldprod(p.float(), stride) - chk).abs() > threshold * ref + floor
     return bad, bad.sum(dtype=torch.int32)
+
+
+# --- traditional (rank-1) ABFT: linear layers and the decoupled baseline ---
+
+
+def traditional_encode_rows(a: torch.Tensor) -> torch.Tensor:
+    """Classic ABFT column checksums: ``(..., M, K) -> (..., 2, K)`` with
+    ``c1 = ones @ A`` and ``c2 = (1..M) @ A``. f32 accumulation, one
+    rounding to ``a``'s dtype."""
+    af = a.float()
+    w = torch.arange(1, a.shape[-2] + 1, dtype=torch.float32,
+                     device=a.device)
+    c1 = af.sum(dim=-2, keepdim=True)
+    c2 = (af * w[:, None]).sum(dim=-2, keepdim=True)
+    return torch.cat([c1, c2], dim=-2).to(a.dtype)
+
+
+def traditional_encode_cols(b: torch.Tensor) -> torch.Tensor:
+    """Classic ABFT row checksums: ``(..., K, N) -> (..., K, 2)``, the
+    columns ``B @ 1`` and ``B @ (1..N)``. f32 accumulation, one rounding to
+    ``b``'s dtype."""
+    bf = b.float()
+    w = torch.arange(1, b.shape[-1] + 1, dtype=torch.float32,
+                     device=b.device)
+    r1 = bf.sum(dim=-1, keepdim=True)
+    r2 = (bf * w).sum(dim=-1, keepdim=True)
+    return torch.cat([r1, r2], dim=-1).to(b.dtype)
+
+
+def traditional_verify_correct(c: torch.Tensor, row_checks: torch.Tensor, *,
+                               threshold: float,
+                               correct: bool = True) -> Verdict:
+    """Verify and correct ``C`` (..., M, N) against its classic row
+    checksums ``row_checks`` (..., M, 2), the predicted [sum, weighted sum]
+    of each row. Single-error model: a bad row's error is located to a
+    column by the ratio of the weighted to the plain difference. The
+    relative threshold is floored at the mean |c1| over the whole tensor;
+    the negated ``<=`` form makes a NaN/inf difference count as detected.
+    ``n_detected`` is the total over every row."""
+    n = c.shape[-1]
+    cf = c.float()
+    w = torch.arange(1, n + 1, dtype=torch.float32, device=c.device)
+    d1 = row_checks[..., 0].float() - cf.sum(dim=-1)
+    d2 = row_checks[..., 1].float() - (cf * w).sum(dim=-1)
+    c1f = row_checks[..., 0].float().abs()
+    floor = torch.clamp(c1f.mean(), min=1e-6)
+    bad = ~(d1.abs() <= threshold * torch.maximum(c1f, floor))
+    n_detected = bad.sum(dtype=torch.int32)
+    max_delta = (d1.abs().max() if d1.numel()
+                 else torch.zeros((), device=c.device))
+    if not correct:
+        return Verdict(c, n_detected, max_delta)
+    safe = torch.where(bad, d1, torch.ones_like(d1))
+    col = torch.clamp(torch.round(d2 / safe) - 1, 0, n - 1).long()
+    onehot = (torch.arange(n, device=c.device) == col[..., None]).float()
+    fixed = cf + onehot * (d1 * bad)[..., None]
+    return Verdict(fixed.to(c.dtype), n_detected, max_delta)

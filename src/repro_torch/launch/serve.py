@@ -12,10 +12,14 @@ default, the checksummed paged engine with ``--paged``.
       --speculate draft --draft-len 4 --kernel gather
   python -m repro_torch.launch.serve --arch gpt2 --paged --kernel gather \\
       --kv-verify stamped --scrub-interval 4 --kv-flips 2
+  python -m repro_torch.launch.serve --arch t5-small-smoke --device cpu \\
+      --requests 2 --gen 4
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given. ``--speculate`` implies ``--paged``; the paged
-backend defaults to ``gather``, as in the JAX package.
+backend defaults to ``gather``, as in the JAX package. The engines serve
+the dense decoder family; the encoder and encoder-decoder families go
+through the static-batch greedy loop (``greedy_generate``).
 """
 from __future__ import annotations
 
@@ -32,7 +36,36 @@ from repro_torch.core.fault import FaultSpec, Site
 from repro_torch.models import build_model
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.serve import (PagedServeEngine, SamplingParams, ServeEngine,
-                               batch_faults)
+                               batch_faults, greedy_generate)
+
+
+def _static_batch_serve(cfg, model, params, rng, args, log):
+    """The families the continuous-batching engines do not serve (the
+    encoder and encoder-decoder ones): one static batch of ``--requests``
+    prompts of ``--max-prompt`` random tokens through ``greedy_generate``,
+    with random frontend frames (audio) or encoder tokens of ones (enc-dec,
+    8 per request)."""
+    dev = model.device
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(args.requests, args.max_prompt)),
+        device=dev).long()
+    kw = {}
+    if cfg.family == "audio":
+        kw["frontend"] = torch.as_tensor(rng.standard_normal(
+            (args.requests, cfg.frontend_tokens, cfg.d_model)) * 0.1,
+            dtype=torch.float32, device=dev)
+    if cfg.family == "encdec":
+        kw["enc_tokens"] = torch.ones((args.requests, 8), dtype=torch.long,
+                                      device=dev)
+    t0 = time.perf_counter()
+    out, rep = greedy_generate(model, params, tokens, steps=args.gen, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log.info("static-batch served %s tokens in %.2fs (%.1f tok/s) on %s; "
+             "EFTA detected=%s", tuple(out.shape), dt, out.numel() / dt, dev,
+             rep.detected.sum(dim=0).tolist())
+    print(out.cpu().numpy())
 
 
 def main(argv=None):
@@ -124,6 +157,12 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     params = model.init(gen)
     rng = np.random.default_rng(args.seed)
+    if cfg.family != "dense":
+        if args.paged:
+            ap.error(f"the paged engine serves the dense family; "
+                     f"{cfg.name} is {cfg.family!r}")
+        _static_batch_serve(cfg, model, params, rng, args, log)
+        return
     if args.paged:
         draft_model = draft_params = None
         if args.speculate == "draft":

@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import init_cache as init_attn_cache
-from repro_torch.models.transformer import forward, init_params
+from repro_torch.models.transformer import ENC_DEC, forward, init_params
 
 
 def resolve_device(device) -> torch.device:
@@ -44,30 +44,40 @@ class Model:
         return init_params(generator, self.cfg, self.device)
 
     def logits(self, params, batch):
-        """Full-sequence causal forward of ``batch["tokens"]`` (B, S).
-        Returns (logits f32 (B, S, V), FTReport)."""
-        out, rep, _ = forward(params, self.cfg, batch["tokens"], mode="train")
+        """Full-sequence forward of ``batch["tokens"]`` (B, S), causal
+        except in the ``encoder`` family; ``batch["frontend"]`` or
+        ``batch["enc_tokens"]`` feed the encoder of the encoder-decoder
+        families. Returns (logits f32 (B, S, V), FTReport)."""
+        out, rep, _ = forward(params, self.cfg, batch["tokens"], mode="train",
+                              frontend=batch.get("frontend"),
+                              enc_tokens=batch.get("enc_tokens"))
         return out, rep
 
     def init_cache(self, batch: int, *, cache_len: Optional[int] = None):
-        """Empty ring KV caches for ``batch`` rows, stacked over layers."""
+        """Empty ring KV caches for ``batch`` rows, stacked over layers;
+        the encoder-decoder families also get a cross-memory placeholder of
+        ``max(frontend_tokens, 1)`` rows, which prefill replaces."""
         cfg = self.cfg
-        return init_attn_cache(batch, cfg.attn,
-                               cache_len=cache_len or cfg.max_seq,
-                               dtype=getattr(torch, cfg.dtype),
-                               device=self.device,
-                               num_layers=cfg.num_layers)
+        return init_attn_cache(
+            batch, cfg.attn, cache_len=cache_len or cfg.max_seq,
+            dtype=getattr(torch, cfg.dtype), device=self.device,
+            num_layers=cfg.num_layers,
+            cross_len=max(cfg.frontend_tokens, 1)
+            if cfg.family in ENC_DEC else 0)
 
     def prefill(self, params, tokens: torch.Tensor, cache, *,
-                lengths=None, fault=None):
-        """Process the prompt (B, S) into a fresh ring ``cache``. Returns
-        (logits (B, V) at each row's last token ``lengths - 1`` (None = the
-        last column), FTReport, cache). Causality keeps the gathered logits
-        free of the padding; the serve engine rewinds each slot's position
-        to its true length. ``fault``: a FaultSpec."""
+                frontend=None, enc_tokens=None, lengths=None, fault=None):
+        """Process the prompt (B, S) into a fresh ring ``cache`` (and, for
+        the encoder-decoder families, encode ``frontend`` or
+        ``enc_tokens`` into the cache's cross memory). Returns (logits (B,
+        V) at each row's last token ``lengths - 1`` (None = the last
+        column), FTReport, cache). Causality keeps the gathered logits free
+        of the padding; the serve engine rewinds each slot's position to
+        its true length. ``fault``: a FaultSpec."""
         logits, rep, new_cache = forward(params, self.cfg, tokens,
                                          cache=cache, mode="prefill",
-                                         fault=fault)
+                                         fault=fault, frontend=frontend,
+                                         enc_tokens=enc_tokens)
         return _last_logits(logits, lengths), rep, new_cache
 
     def decode_step(self, params, token: torch.Tensor, cache, *,

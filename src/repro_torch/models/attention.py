@@ -1,7 +1,9 @@
-"""Attention block: GQA/MQA + RoPE + sliding window, with the paper's EFTA
-as the attention implementation, over three kinds of KV:
+"""Attention block: GQA/MQA + RoPE + sliding window + cross-attention,
+with the paper's EFTA as the attention implementation, over three kinds of
+KV:
 
-  * none — the full sequence attends to itself (training forward, logits);
+  * none — the full sequence attends to itself (training forward, logits,
+    the encoder);
   * a ring :class:`KVCache` per slot (``slot = position % cache_len``):
     prefill attends within the prompt, decode over the valid region of the
     ring, with each slot's absolute position reconstructed so causal and
@@ -14,7 +16,9 @@ Contiguous attention dispatches through :func:`repro_torch.kernels.ops.
 attention` on ``FTCfg.attn_impl``; ``efta_pallas`` (the fused contiguous
 kernel) serves the full sequence and ring prefill, and ring decode sends it
 to plain-PyTorch ``efta`` with the reconstructed ``kv_positions``, as the
-JAX package does.
+JAX package does. :func:`cross_attn_apply` attends the decoder to the
+encoder's memory (non-causal, ``attn_impl`` in every mode, decode included).
+Every projection goes through ``layers.matmul`` with ``FTCfg.ff_abft``.
 """
 from __future__ import annotations
 
@@ -39,25 +43,41 @@ class KVCache:
     needs no re-rotation. :meth:`layer` gives one layer's view (4-D k/v).
     The forward writes K/V in place and returns the advanced ``pos`` in a
     new cache, so a step that is retried rewrites the same slots and
-    commits nothing until the caller keeps its result. (Cross-attention
-    memory, which the JAX package's cache also carries, belongs to the
-    families not ported yet.)"""
+    commits nothing until the caller keeps its result.
+
+    ``ck``/``cv`` (L, B, Hkv, M, hd) hold the cross-attention memory of the
+    encoder-decoder families: the K/V projections of the encoder's M output
+    rows, computed once at prefill and read by every decode step (None for
+    the decoder-only families). The JAX package allocates a placeholder of
+    ``max(frontend_tokens, 1)`` rows and swaps in the M rows at prefill;
+    here the prefill's new cache holds new ``ck``/``cv`` tensors of M rows.
+    """
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    ck: Optional[torch.Tensor] = None
+    cv: Optional[torch.Tensor] = None
 
     def layer(self, i: int) -> "KVCache":
-        return dataclasses.replace(self, k=self.k[i], v=self.v[i])
+        cross = {} if self.ck is None else dict(ck=self.ck[i], cv=self.cv[i])
+        return dataclasses.replace(self, k=self.k[i], v=self.v[i], **cross)
 
 
 def init_cache(batch: int, a: AttnCfg, *, cache_len: int, dtype, device,
-               num_layers: int = 1) -> KVCache:
+               num_layers: int = 1, cross_len: int = 0) -> KVCache:
+    """Zeroed ring caches; ``cross_len > 0`` adds the cross-attention
+    memory placeholder of ``cross_len`` rows, which prefill replaces."""
     shape = (num_layers, batch, a.num_kv_heads, cache_len, a.head_dim)
+    cross = {}
+    if cross_len > 0:
+        cshape = shape[:3] + (cross_len, a.head_dim)
+        cross = dict(ck=torch.zeros(cshape, dtype=dtype, device=device),
+                     cv=torch.zeros(cshape, dtype=dtype, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=torch.zeros((batch,), dtype=torch.int32,
-                                   device=device))
+                                   device=device), **cross)
 
 
 @dataclasses.dataclass
@@ -332,17 +352,16 @@ def attn_apply(params, x: torch.Tensor, *, acfg: AttnCfg, ft: FTCfg,
     step). ``fault``: a :class:`~repro_torch.core.fault.FaultSpec` on the
     contiguous paths, the paged kernel's int32[8] descriptor on the paged
     one. Returns (y, FTReport with (B, 5) counts, bad plane or None)."""
-    if ft.ff_abft:
-        raise NotImplementedError("ff_abft projections come in a later slice")
     paged = isinstance(cache, PagedKVCache)
     if paged and mode != "decode":
         raise NotImplementedError(
             "PagedKVCache attention is the unified batched decode/extend "
             "step; prefill has no paged cache")
     hd, h, hkv = acfg.head_dim, acfg.num_heads, acfg.num_kv_heads
-    q = _split_heads(matmul(x, params["wq"]), h, hd)
-    k = _split_heads(matmul(x, params["wk"]), hkv, hd)
-    v = _split_heads(matmul(x, params["wv"]), hkv, hd)
+    ff = ft.ff_abft
+    q = _split_heads(matmul(x, params["wq"], ff_abft=ff), h, hd)
+    k = _split_heads(matmul(x, params["wk"], ff_abft=ff), hkv, hd)
+    v = _split_heads(matmul(x, params["wv"], ff_abft=ff), hkv, hd)
     if acfg.pos == "rope":
         q = rope(q.transpose(1, 2), positions, acfg.rope_theta).transpose(1, 2)
         k = rope(k.transpose(1, 2), positions, acfg.rope_theta).transpose(1, 2)
@@ -364,4 +383,34 @@ def attn_apply(params, x: torch.Tensor, *, acfg: AttnCfg, ft: FTCfg,
         out, rep = attention_op(q, k, v, impl=ft.attn_impl, cfg=cfg,
                                 causal=acfg.causal, window=window,
                                 sm_scale=acfg.softmax_scale, fault=fault)
-    return matmul(_merge_heads(out), params["wo"]), rep, bad
+    return matmul(_merge_heads(out), params["wo"], ff_abft=ff), rep, bad
+
+
+def cross_attn_apply(params, x: torch.Tensor, *, acfg: AttnCfg, ft: FTCfg,
+                     positions: torch.Tensor, memory=None, cache=None,
+                     mode: str = "train"):
+    """Cross-attention of one decoder layer to the encoder's memory.
+
+    ``x``: (B, S, d_model); ``positions``: (B, S) decoder positions (RoPE
+    rotates q only; keys are encoder rows). K/V are projected from
+    ``memory`` (B, M, d_model) with ``wk``/``wv`` in ``mode`` "train" and
+    "prefill", and read from one layer's ``cache.ck``/``cache.cv`` in
+    "decode". Non-causal, through ``ft.attn_impl`` in every mode (decode
+    included: unlike self-attention, the cross branch does not send
+    ``efta_pallas`` decode to ``efta``); no fault strikes it. Returns (y,
+    FTReport with (B, 5) counts, (k, v) to keep in the cache, or None in
+    decode)."""
+    hd, h, hkv = acfg.head_dim, acfg.num_heads, acfg.num_kv_heads
+    ff = ft.ff_abft
+    q = _split_heads(matmul(x, params["wq"], ff_abft=ff), h, hd)
+    if cache is not None and mode == "decode":
+        k, v, kv = cache.ck, cache.cv, None
+    else:
+        k = _split_heads(matmul(memory, params["wk"], ff_abft=ff), hkv, hd)
+        v = _split_heads(matmul(memory, params["wv"], ff_abft=ff), hkv, hd)
+        kv = (k, v)
+    if acfg.pos == "rope":
+        q = rope(q.transpose(1, 2), positions, acfg.rope_theta).transpose(1, 2)
+    out, rep = attention_op(q, k, v, impl=ft.attn_impl, cfg=efta_cfg(ft),
+                            causal=False, sm_scale=acfg.softmax_scale)
+    return matmul(_merge_heads(out), params["wo"], ff_abft=ff), rep, kv

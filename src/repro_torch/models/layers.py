@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.abft_gemm import tensor_abft_matmul
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
@@ -18,9 +20,14 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return w.to(dtype)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, *, ff_abft: bool = False
+           ) -> torch.Tensor:
     """Linear projection with f32 accumulation, one rounding to x's dtype
-    (the JAX package's ``preferred_element_type=f32`` then ``astype``)."""
+    (the JAX package's ``preferred_element_type=f32`` then ``astype``);
+    with ``ff_abft`` protected by tensor-checksum ABFT, whose detection
+    count is dropped here, as the JAX package drops it."""
+    if ff_abft:
+        return tensor_abft_matmul(x, w)[0]
     if x.dtype == torch.float32:
         return torch.matmul(x, w.float())
     # cuBLAS accumulates 16-bit products in f32 and rounds once on output
@@ -71,14 +78,15 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device, *,
     return p
 
 
-def mlp_apply(params, x: torch.Tensor, *, act: str, glu: bool
-              ) -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, *, act: str, glu: bool,
+              ff_abft: bool = False) -> torch.Tensor:
     a = ACTS[act]
     if glu:
-        h = a(matmul(x, params["gate"])) * matmul(x, params["up"])
+        h = a(matmul(x, params["gate"], ff_abft=ff_abft)) * matmul(
+            x, params["up"], ff_abft=ff_abft)
     else:
-        h = a(matmul(x, params["up"]))
-    return matmul(h, params["down"])
+        h = a(matmul(x, params["up"], ff_abft=ff_abft))
+    return matmul(h, params["down"], ff_abft=ff_abft)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device):

@@ -14,10 +14,13 @@ def greedy_generate(model: Model, params, tokens: torch.Tensor, *,
                     steps: int, cache_len: Optional[int] = None,
                     **prefill_kw):
     """Per-token Python-loop greedy decoder: prefill ``tokens`` (B, S),
-    then ``steps`` decode steps, each taking the argmax. Returns (tokens
-    (B, steps), the merged FTReport). Kept as the exactness oracle for
+    then ``steps`` decode steps, each taking the argmax. ``prefill_kw`` go
+    to :meth:`Model.prefill`: ``frontend`` or ``enc_tokens`` for the
+    encoder-decoder families, ``lengths``, ``fault``. Returns (tokens (B,
+    steps), the merged FTReport). Kept as the exactness oracle for
     :class:`repro_torch.serve.ServeEngine`, which must emit the same tokens
-    per request; production serving goes through the engine."""
+    per request, and as the serving path of the families the engines do
+    not serve (the CLI's static batch)."""
     b = tokens.shape[0]
     cache = model.init_cache(b, cache_len=cache_len or
                              (tokens.shape[1] + steps + 1))

@@ -302,3 +302,67 @@ def test_spec_step_and_rollback_match_plain(dtype, flip):
     assert not bool(kz[int(bt[0, 2]), :, 8:10].any())
     assert not bool(kz[int(bt[2, 3]), :, 0:4].any())
     assert bool(kz[int(bt[2, 2]), :, 15].any())     # slot 2 row 47 kept
+
+
+# --- the encoder and encoder-decoder regimes of the contiguous kernel ------
+
+# bert-large's non-causal self-attention (H 16, Sq = Skv 512) and t5-small's
+# cross-attention of a 64-token prompt and of one decode row to a 512-row
+# encoder memory (H 8): at Sq 1 a thread block computes one real row and 15
+# padding rows, which must not count
+B2_REGIMES = {"bert_large_encoder": dict(H=16, Hkv=16, Sq=512, Skv=512),
+              "cross_prefill": dict(H=8, Hkv=8, Sq=64, Skv=512),
+              "cross_decode": dict(H=8, Hkv=8, Sq=1, Skv=512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B2_REGIMES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+def test_contiguous_kernel_encoder_and_cross_regimes(regime, dtype, site):
+    dev = cuda_or_skip()
+    shape = B2_REGIMES[regime]
+    q, k, v = _contig(dev, dtype, B=2, D=64, seed=7, **shape)
+    cfg = EFTAConfig(mode="correct")
+    row = shape["Sq"] - 1
+    fault = None if site is None else [int(site), 0, 3, row, 5, 30, 1, 0]
+    kw = dict(cfg=cfg, causal=False, fault=fault)
+    got = efta_attention(q, k, v, **kw)
+    plain = efta_attention_torch(q, k, v, **kw)
+    _same(got, plain)
+    if site is None:
+        assert int(got[1].sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP):
+        # the shadows and the EXP recompute catch every flip at their site
+        assert int(got[1].sum()) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["abft_matmul", "tensor_abft_matmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abft_matmul_on_the_card_matches_the_cpu(fn, dtype):
+    """The linear-module ABFT at gpt2's MLP shape on the card (16-bit
+    products on the tensor cores with an f32 result) against the same call
+    on the CPU, clean and under a GEMM1 SEU at the top exponent bit of an
+    element of |y| >= 2 (which it shrinks to ~0): equal counts, outputs
+    within one bf16 ulp (f32: 1e-5 of the largest). The rank-1 check of a
+    3,072-wide bf16 row has a threshold of 5e-2 of the row sum (~2.8 here),
+    so it may miss that flip, on both devices alike; the strided one
+    folds 24 values a column and sees it."""
+    from repro_torch.core import abft_gemm
+    from repro_torch.core.fault import FaultSpec
+    dev = cuda_or_skip()
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((512, 768), generator=g).to(dtype)
+    w = (torch.randn((768, 3072), generator=g) / 768 ** 0.5).to(dtype)
+    y = x.float() @ w.float()
+    r, c = (int(i) for i in (y.abs() >= 2).nonzero()[0])
+    for fault in (None, FaultSpec.single(Site.GEMM1, batch=r, head=c,
+                                         bit=30)):
+        got = getattr(abft_gemm, fn)(x.to(dev), w.to(dev), fault=fault)
+        ref = getattr(abft_gemm, fn)(x, w, fault=fault)
+        assert int(got[1]) == int(ref[1])
+        if fn == "tensor_abft_matmul" or dtype == torch.float32:
+            assert int(got[1]) == (fault is not None)
+        _same((got[0].cpu(), got[1].cpu()), ref)
