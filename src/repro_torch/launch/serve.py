@@ -14,12 +14,16 @@ default, the checksummed paged engine with ``--paged``.
       --kv-verify stamped --scrub-interval 4 --kv-flips 2
   python -m repro_torch.launch.serve --arch t5-small-smoke --device cpu \\
       --requests 2 --gen 4
+  python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b-smoke --device cpu \\
+      --paged --kernel fused
+  python -m repro_torch.launch.serve --arch rwkv6-7b-smoke --device cpu
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given. ``--speculate`` implies ``--paged``; the paged
 backend defaults to ``gather``, as in the JAX package. The engines serve
-the dense decoder family; the encoder and encoder-decoder families go
-through the static-batch greedy loop (``greedy_generate``).
+the decoder-only attention families (dense, moe); the encoder,
+encoder-decoder, ssm and hybrid families go through the static-batch
+greedy loop (``greedy_generate``).
 """
 from __future__ import annotations
 
@@ -41,10 +45,10 @@ from repro_torch.serve import (PagedServeEngine, SamplingParams, ServeEngine,
 
 def _static_batch_serve(cfg, model, params, rng, args, log):
     """The families the continuous-batching engines do not serve (the
-    encoder and encoder-decoder ones): one static batch of ``--requests``
-    prompts of ``--max-prompt`` random tokens through ``greedy_generate``,
-    with random frontend frames (audio) or encoder tokens of ones (enc-dec,
-    8 per request)."""
+    encoder, encoder-decoder, ssm and hybrid ones): one static batch of
+    ``--requests`` prompts of ``--max-prompt`` random tokens through
+    ``greedy_generate``, with random frontend frames (audio) or encoder
+    tokens of ones (enc-dec, 8 per request)."""
     dev = model.device
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, size=(args.requests, args.max_prompt)),
@@ -157,9 +161,9 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     params = model.init(gen)
     rng = np.random.default_rng(args.seed)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         if args.paged:
-            ap.error(f"the paged engine serves the dense family; "
+            ap.error(f"the paged engine serves the dense and moe families; "
                      f"{cfg.name} is {cfg.family!r}")
         _static_batch_serve(cfg, model, params, rng, args, log)
         return

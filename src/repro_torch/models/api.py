@@ -8,8 +8,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import init_cache as init_attn_cache
-from repro_torch.models.transformer import ENC_DEC, forward, init_params
+from repro_torch.models.transformer import (ENC_DEC, HybridCache, forward,
+                                            init_params)
 
 
 def resolve_device(device) -> torch.device:
@@ -54,16 +56,27 @@ class Model:
         return out, rep
 
     def init_cache(self, batch: int, *, cache_len: Optional[int] = None):
-        """Empty ring KV caches for ``batch`` rows, stacked over layers;
-        the encoder-decoder families also get a cross-memory placeholder of
-        ``max(frontend_tokens, 1)`` rows, which prefill replaces."""
+        """Empty serving state for ``batch`` rows, stacked over layers: ring
+        KV caches (the encoder-decoder families also get a cross-memory
+        placeholder of ``max(frontend_tokens, 1)`` rows, which prefill
+        replaces); for the ``ssm`` family zeroed rwkv6 states, for
+        ``hybrid`` a :class:`HybridCache` of both."""
         cfg = self.cfg
-        return init_attn_cache(
+        dtype = getattr(torch, cfg.dtype)
+        L = cfg.num_layers
+        if cfg.family == "ssm":
+            return ssm_lib.rwkv_state_init(batch, cfg.d_model, cfg.ssm, dtype,
+                                           self.device, num_layers=L)
+        attn = init_attn_cache(
             batch, cfg.attn, cache_len=cache_len or cfg.max_seq,
-            dtype=getattr(torch, cfg.dtype), device=self.device,
-            num_layers=cfg.num_layers,
+            dtype=dtype, device=self.device, num_layers=L,
             cross_len=max(cfg.frontend_tokens, 1)
             if cfg.family in ENC_DEC else 0)
+        if cfg.family == "hybrid":
+            return HybridCache(attn=attn, mamba=ssm_lib.mamba_state_init(
+                batch, cfg.d_model, cfg.ssm, dtype, self.device,
+                num_layers=L))
+        return attn
 
     def prefill(self, params, tokens: torch.Tensor, cache, *,
                 frontend=None, enc_tokens=None, lengths=None, fault=None):
@@ -81,21 +94,25 @@ class Model:
         return _last_logits(logits, lengths), rep, new_cache
 
     def decode_step(self, params, token: torch.Tensor, cache, *,
-                    fault=None):
+                    fault=None, independent_rows: bool = False):
         """token: (B, 1), each row at its own cache position. Returns
         (logits (B, V), FTReport with (B, 5) counts, cache). ``fault``: a
-        FaultSpec, per row as (B, n_faults) entries."""
+        FaultSpec, per row as (B, n_faults) entries. ``independent_rows``:
+        each row is its own MoE routing group, as a batch-1 call per row
+        (the serve slots of the JAX package's vmapped decode) would be."""
         logits, rep, new_cache = forward(params, self.cfg, token,
                                          cache=cache, mode="decode",
-                                         fault=fault)
+                                         fault=fault,
+                                         independent_rows=independent_rows)
         return logits[:, -1, :], rep, new_cache
 
-    def score(self, params, tokens: torch.Tensor, cache, *, fault=None):
+    def score(self, params, tokens: torch.Tensor, cache, *, fault=None,
+              independent_rows: bool = False):
         """The unified chunked step returning FULL per-row logits (B, S, V)
         f32: row ``c`` conditions on the cached context plus rows ``0..c``.
         Returns (logits, FTReport, new cache)."""
         return forward(params, self.cfg, tokens, cache=cache, mode="decode",
-                       fault=fault)
+                       fault=fault, independent_rows=independent_rows)
 
     def extend(self, params, tokens: torch.Tensor, cache, *,
                lengths: Optional[torch.Tensor] = None, fault=None):

@@ -119,17 +119,14 @@ def efta_cfg(ft: FTCfg) -> EFTAConfig:
                       out_stride_override=ft.out_stride_override)
 
 
-def attn_init(gen: torch.Generator, d_model: int, a: AttnCfg, dtype, device):
-    return {
-        "wq": dense_init(gen, d_model, a.num_heads * a.head_dim, dtype,
-                         device),
-        "wk": dense_init(gen, d_model, a.num_kv_heads * a.head_dim, dtype,
-                         device),
-        "wv": dense_init(gen, d_model, a.num_kv_heads * a.head_dim, dtype,
-                         device),
-        "wo": dense_init(gen, a.num_heads * a.head_dim, d_model, dtype,
-                         device),
-    }
+def attn_init(gen: torch.Generator, d_model: int, a: AttnCfg, dtype, device,
+              out=None):
+    out = out or {}
+    hq, hkv = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+    shapes = {"wq": (d_model, hq), "wk": (d_model, hkv),
+              "wv": (d_model, hkv), "wo": (hq, d_model)}
+    return {k: dense_init(gen, *io, dtype, device, out=out.get(k))
+            for k, io in shapes.items()}
 
 
 def _paged_chunk(q, k, v, cache: PagedKVCache, *, cfg: EFTAConfig, window,

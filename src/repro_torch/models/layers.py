@@ -12,12 +12,37 @@ import torch.nn.functional as F
 from repro_torch.core.abft_gemm import tensor_abft_matmul
 
 
+def normal_init(gen: torch.Generator, shape, dtype, device, scale: float,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N(0, scale^2) draws made in f32 and rounded to ``dtype``, into ``out``
+    where given (else a new tensor of ``shape``), drawn one trailing 2-D
+    slice at a time: the f32 scratch never exceeds one slice (one expert's
+    weight), whatever the leading axes. Draws nothing on the meta device."""
+    shape = tuple(shape)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
+    piece = shape[-2:]
+    for p in out.view((-1,) + piece):
+        p.copy_(torch.randn(piece, generator=gen, dtype=torch.float32,
+                            device=out.device) * scale)
+    return out
+
+
+def const_init(shape, dtype, device, value: float,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A ``shape`` tensor of ``value``, in ``out`` where given."""
+    if out is None:
+        return torch.full(tuple(shape), value, dtype=dtype, device=device)
+    return out.fill_(value)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
-               scale: Optional[float] = None) -> torch.Tensor:
+               scale: Optional[float] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=device) * scale
-    return w.to(dtype)
+    return normal_init(gen, (d_in, d_out), dtype, device, scale, out)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, ff_abft: bool = False
@@ -49,11 +74,12 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["w"].float() + params["b"].float()).to(x.dtype)
 
 
-def norm_init(kind: str, d: int, dtype, device):
-    w = torch.ones((d,), dtype=dtype, device=device)
-    if kind == "rmsnorm":
-        return {"w": w}
-    return {"w": w, "b": torch.zeros((d,), dtype=dtype, device=device)}
+def norm_init(kind: str, d: int, dtype, device, out=None):
+    out = out or {}
+    p = {"w": const_init((d,), dtype, device, 1.0, out.get("w"))}
+    if kind != "rmsnorm":
+        p["b"] = const_init((d,), dtype, device, 0.0, out.get("b"))
+    return p
 
 
 def norm_apply(kind: str, params, x: torch.Tensor) -> torch.Tensor:
@@ -69,12 +95,13 @@ ACTS = {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}
 
 
 def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device, *,
-             glu: bool):
+             glu: bool, out=None):
+    out = out or {}
     p = {}
     if glu:
-        p["gate"] = dense_init(gen, d, ff, dtype, device)
-    p["up"] = dense_init(gen, d, ff, dtype, device)
-    p["down"] = dense_init(gen, ff, d, dtype, device)
+        p["gate"] = dense_init(gen, d, ff, dtype, device, out=out.get("gate"))
+    p["up"] = dense_init(gen, d, ff, dtype, device, out=out.get("up"))
+    p["down"] = dense_init(gen, ff, d, dtype, device, out=out.get("down"))
     return p
 
 
@@ -90,9 +117,7 @@ def mlp_apply(params, x: torch.Tensor, *, act: str, glu: bool,
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device):
-    return {"table": (torch.randn((vocab, d), generator=gen,
-                                  dtype=torch.float32, device=device)
-                      * 0.02).to(dtype)}
+    return {"table": normal_init(gen, (vocab, d), dtype, device, 0.02)}
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -125,6 +150,4 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
 
 def learned_pos_init(gen: torch.Generator, max_seq: int, d: int, dtype,
                      device):
-    return {"pos": (torch.randn((max_seq, d), generator=gen,
-                                dtype=torch.float32, device=device)
-                    * 0.02).to(dtype)}
+    return {"pos": normal_init(gen, (max_seq, d), dtype, device, 0.02)}

@@ -81,7 +81,7 @@ class EngineStats:
 
 class ServeEngine:
     """Continuous-batching engine over a fixed pool of ring KV-cache slots
-    (decoder-only attention families). Prompts are padded to power-of-two
+    (the decoder-only attention families, dense and moe). Prompts are padded to power-of-two
     buckets from ``MIN_PREFILL_BUCKET`` up to ``cache_len``; decode is one
     batched forward over all ``n_slots`` slots."""
 
@@ -89,10 +89,10 @@ class ServeEngine:
                  cache_len: Optional[int] = None, max_retries: int = 2,
                  retry_on_detect: bool = True):
         cfg = model.cfg
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"repro_torch serves the dense decoder family so far; got "
-                f"{cfg.family!r}")
+                f"serve engine supports decoder-only attention families "
+                f"(dense, moe); got {cfg.family!r}")
         self.model = model
         self.params = params
         self.device = model.device
@@ -151,8 +151,11 @@ class ServeEngine:
             faults = None
         tokens = torch.as_tensor(self._pending[:, None],
                                  device=self.device).long()
+        # each slot its own MoE routing group: the JAX package vmaps a
+        # batch-1 decode over the slots
         logits, rep, new_state = self.model.decode_step(
-            self.params, tokens, self.pool.state, fault=faults)
+            self.params, tokens, self.pool.state, fault=faults,
+            independent_rows=True)
         next_tokens = sample_tokens(
             logits.float(), temperature=self._temps, top_k=self._topks,
             seeds=self._seeds, rids=self._rids, counters=self._counters)

@@ -416,7 +416,7 @@ class PagedServeEngine(ServeEngine):
         tokens = self._dev(self._pending[:, None]).long()
         logits, rep, _ = self.model.decode_step(
             self.params, tokens, self._ring_view(kg, vg, self._pos),
-            fault=faults)
+            fault=faults, independent_rows=True)
         pos = self._dev(self._pos).long()
         rows = torch.arange(ns, device=dev)
         bt = self._dev(self._bt).long()
@@ -466,7 +466,8 @@ class PagedServeEngine(ServeEngine):
             faults = None
         logits, rep, _ = self.model.score(
             self.params, self._dev(tokens).long(),
-            self._ring_view(kg, vg, self._pos), fault=faults)
+            self._ring_view(kg, vg, self._pos), fault=faults,
+            independent_rows=True)
         pos = self._dev(self._pos).long()
         ql = self._dev(q_lens).long()
         bt = self._dev(self._bt).long()

@@ -82,6 +82,15 @@ B1_CASES = {
     "decode_grp4": dict(grp=4, C=1, mb=8),
     "mixed_c64": dict(grp=1, C=64, mb=8, q_lens=[32, 1, 1]),
     "context_1024": dict(grp=1, C=1, mb=64, full=True),
+    # the moe family's heads: kimi-k2 (8 query heads a KV head of 112,
+    # output stride 7) and arctic (7 a KV head of 128: 7 decode rows of a
+    # 16-row group)
+    "kimi_decode_d112": dict(grp=8, hd=112, C=1, mb=8, stride=128),
+    "kimi_mixed_d112": dict(grp=8, hd=112, C=64, mb=8, q_lens=[32, 1, 1],
+                            stride=128),
+    "arctic_decode_d128": dict(grp=7, hd=128, C=1, mb=8, stride=128),
+    "arctic_mixed_d128": dict(grp=7, hd=128, C=64, mb=8, q_lens=[32, 1, 1],
+                              stride=128),
 }
 
 
@@ -92,8 +101,10 @@ B1_CASES = {
 @pytest.mark.parametrize("mode", ["correct", "detect"])
 def test_kernel_redesign_cases(name, site, mode):
     dev = cuda_or_skip()
-    args = _case(dev, torch.bfloat16, **B1_CASES[name])
-    cfg = EFTAConfig(mode=mode, stride=8, block_kv=16)
+    case = dict(B1_CASES[name])
+    stride = case.pop("stride", 8)        # 128: the engine's config
+    args = _case(dev, torch.bfloat16, **case)
+    cfg = EFTAConfig(mode=mode, stride=stride, block_kv=16)
     last = (int(args[6][1]) - 1) // 16
     runs = [(None if site is None else [int(site), block, 1, 1, 0, 3, 27, 1],
              args) for block in (0, last)]
@@ -313,6 +324,30 @@ def test_spec_step_and_rollback_match_plain(dtype, flip):
 B2_REGIMES = {"bert_large_encoder": dict(H=16, Hkv=16, Sq=512, Skv=512),
               "cross_prefill": dict(H=8, Hkv=8, Sq=64, Skv=512),
               "cross_decode": dict(H=8, Hkv=8, Sq=1, Skv=512)}
+
+# the moe family's ring prefill at bucket 512, causal: kimi-k2's 8 query
+# heads a KV head of 112 (output stride 7, 16-column PV slices) and
+# arctic's 7 a KV head of 128
+MOE_B2 = {"kimi_d112": dict(H=16, Hkv=2, D=112),
+          "arctic_d128": dict(H=14, Hkv=2, D=128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(MOE_B2))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+def test_contiguous_kernel_moe_heads(regime, dtype, site):
+    dev = cuda_or_skip()
+    q, k, v = _contig(dev, dtype, Sq=512, Skv=512, seed=11, **MOE_B2[regime])
+    fault = None if site is None else [int(site), 0, 3, 511, 5, 30, 1, 0]
+    kw = dict(cfg=EFTAConfig(mode="correct"), causal=True, fault=fault)
+    got = efta_attention(q, k, v, **kw)
+    _same(got, efta_attention_torch(q, k, v, **kw))
+    if site is None:
+        assert int(got[1].sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP):
+        assert int(got[1].sum()) >= 1
 
 
 @pytest.mark.cuda

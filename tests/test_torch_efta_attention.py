@@ -15,6 +15,14 @@ numpy inputs.
 * The ``efta_pallas`` route taking the model's ``FaultSpec``: the JAX
   package raises there (ROADMAP.md, Queue C), the port converts the spec
   into the kernel's descriptor.
+* t5-small's encoder regime in bf16 (512 -> 512, non-causal, D 64,
+  block_kv 512, one batch row and head) under each compute-site SEU:
+  counts equal the reference's; a GEMM II flip of an output under eps_out
+  goes uncounted in both, the sub-threshold class of ROADMAP standing item
+  2, and leaves that output off by exactly its clean value.
+* In bf16 with large |V| the unified output check fires on clean input
+  (the O checksums carry the f32 p, GEMM II the rounded one), by the same
+  count in both packages (ROADMAP standing item 12).
 """
 import sys
 
@@ -288,3 +296,87 @@ def test_efta_padded_kv_len_matches_reference():
                                    atol=1e-5, rtol=0)
         np.testing.assert_array_equal(to_np(rep.detected[i]),
                                       np.asarray(jrep.detected))
+
+
+ENC_SITES = [Site.GEMM1, Site.ROWMAX, Site.EXP, Site.ROWSUM, Site.GEMM2]
+
+
+@pytest.fixture(scope="module")
+def encoder_regime():
+    """t5-small's encoder regime at one batch row and one head: 512 -> 512,
+    non-causal, D 64, block_kv 512, bf16, clean in both packages."""
+    q, k, v = _qkv(1, 1, 1, 512, 512, 64, seed=7)
+    cfg = dict(mode="correct", stride=128, block_kv=512)
+    ref, got = _both(q, k, v, cfg=cfg, dtype="bf16", causal=False,
+                     block_q=512)
+    return dict(qkv=(q, k, v), cfg=cfg, ref=ref, got=got)
+
+
+def _struck(enc, site, col):
+    fault = np.asarray([int(site), 0, 0, 511, col, 30, 1, 0], np.int32)
+    return _both(*enc["qkv"], cfg=enc["cfg"], fault=fault, dtype="bf16",
+                 causal=False, block_q=512)
+
+
+@pytest.mark.parametrize("site", ENC_SITES)
+def test_plain_kernel_matches_pallas_bf16_encoder_regime(encoder_regime,
+                                                         site):
+    """The descriptor of ``chip_smoke.py``'s encoder-regime SEUs (last row,
+    column 3, top exponent bit) at each compute site: equal detection
+    vectors, outputs one bf16 ulp apart at most (both round the f32 result
+    once), and the struck output within one ulp of the clean one."""
+    enc = encoder_regime
+    ref, got = _struck(enc, site, 3)
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert got[1].sum() == 1
+    ulp = 2.0 ** -8 * np.abs(ref[0]).max()
+    np.testing.assert_allclose(got[0], ref[0], atol=ulp, rtol=0)
+    assert np.abs(got[0] - enc["got"][0]).max() <= ulp
+
+
+def test_gemm2_flip_of_a_small_output_goes_uncounted_in_both(encoder_regime):
+    """A top-exponent flip of a GEMM II accumulator lifts it past max|V|;
+    the NVR clamp zeroes it, and the output check then sees a difference
+    of |o|: under eps_out (5e-2 in bf16) neither package counts it, and the
+    output is off the clean one by exactly |o|. Above eps_out both count
+    it and correct it. The sub-threshold class of ROADMAP standing item 2,
+    the same in both packages."""
+    enc = encoder_regime
+    row = np.abs(enc["ref"][0][0, 0, 511])
+    for col, counted in ((int(np.argmin(row)), False),
+                         (int(np.argmax(row)), True)):
+        ref, got = _struck(enc, Site.GEMM2, col)
+        np.testing.assert_array_equal(got[1], ref[1])
+        assert got[1][4] == int(counted) and got[1].sum() == int(counted)
+        err = np.abs(got[0] - enc["got"][0]).max()
+        np.testing.assert_allclose(err, 0.0 if counted else row[col],
+                                   atol=1e-7, rtol=0)
+        assert counted or row[col] < 5e-2
+
+
+@pytest.mark.parametrize("v_scale,fires", [(1.0, False), (16.0, True)])
+def test_bf16_output_check_fires_on_clean_input_in_both_packages(v_scale,
+                                                                 fires):
+    """In bf16 the unified output check compares the O checksums, carried
+    with the f32 probabilities, against the output of GEMM II, which takes
+    them rounded to bf16. Where |V| is large (here N(0, 16^2)) the rounding
+    of p alone passes eps_out and the check fires on clean input, by the
+    same count in both packages; its correction leaves the outputs as close
+    to the f32 attention of the same bf16 inputs as mode off's."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((1, 4, 64, 64)).astype(np.float32)
+    k = rng.standard_normal((1, 4, 64, 64)).astype(np.float32)
+    v = (rng.standard_normal((1, 4, 64, 64)) * v_scale).astype(np.float32)
+    kw = dict(dtype="bf16", causal=True, block_q=64)
+    ref, got = _both(q, k, v, cfg=dict(mode="correct", stride=128,
+                                       block_kv=64), **kw)
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert (got[1][4] > 0) == fires and got[1][:4].sum() == 0
+    ulp = 2.0 ** -8 * np.abs(ref[0]).max()
+    np.testing.assert_allclose(got[0], ref[0], atol=ulp, rtol=0)
+    _, off = _both(q, k, v, cfg=dict(mode="off", stride=128, block_kv=64),
+                   **kw)
+    truth = to_np(tref.reference_attention(
+        *(to_torch(x, torch.bfloat16).float() for x in (q, k, v)),
+        causal=True))
+    assert np.abs(got[0] - truth).max() <= np.abs(off[0] - truth).max() + ulp

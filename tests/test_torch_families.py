@@ -20,7 +20,7 @@ of the port against the JAX package, on the CPU.
 * Weight conversion carries the ``encoder``, ``enc_norm``, ``norm_x`` and
   ``cross`` trees across; the CLI's static-batch route serves
   ``t5-small-smoke`` and ``bert-base-smoke`` on ``--device cpu``;
-  ``_check_family`` refuses ``moe``, ``ssm``, ``hybrid`` and ``vlm``.
+  ``_check_family`` refuses ``vlm``, the one family not ported yet.
 * Whisper's 1,500 frames do not divide ``block_kv`` 512: both packages
   raise under ``efta_pallas`` (ROADMAP, Queue C).
 """
@@ -256,9 +256,7 @@ def test_cli_static_batch_route(arch, capsys):
             serve.main(["--arch", arch])
 
 
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b-smoke", "rwkv6-7b-smoke",
-                                  "hymba-1.5b-smoke",
-                                  "llama-3.2-vision-11b-smoke"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b-smoke"])
 def test_unported_families_are_refused(arch):
     cfg = get_config(arch)
     with pytest.raises(NotImplementedError, match=cfg.family):
