@@ -106,6 +106,14 @@ class FTReport(NamedTuple):
                         torch.maximum(self.max_delta, other.max_delta))
 
 
+def _at(i: int, value: torch.Tensor) -> torch.Tensor:
+    """A (3,) f32 vector of ``value`` (>= 0) at ``i`` and 0 elsewhere: the
+    report's ``max_delta`` is updated out of place, off the autograd
+    graph."""
+    return torch.where(torch.arange(3, device=value.device) == i,
+                       value.float(), 0.0)
+
+
 def _pad_kv(x: torch.Tensor, block: int) -> torch.Tensor:
     pad = (-x.shape[-2]) % block
     if pad:
@@ -284,7 +292,8 @@ def efta_attention(
             det[:, 0] += verdict.n_detected
             if correct:
                 cor[:, 0] += verdict.n_detected
-            max_delta[0] = torch.maximum(max_delta[0], verdict.max_delta)
+            max_delta = torch.maximum(
+                max_delta, _at(0, verdict.max_delta.detach()))
 
         # --- mask + running max, shadow recompute-compare ---
         bm = block_mask(j)
@@ -395,7 +404,8 @@ def efta_attention(
         det[:, 4] += verdict.n_detected
         if correct:
             cor[:, 4] += verdict.n_detected
-        max_delta[2] = torch.maximum(max_delta[2], verdict.max_delta)
+        max_delta = torch.maximum(max_delta,
+                                  _at(2, verdict.max_delta.detach()))
 
     return o.to(q.dtype), FTReport(det, cor, max_delta)
 

@@ -1,0 +1,54 @@
+"""Elastic re-meshing: plan a new mesh when the healthy device set changes.
+
+A real deployment feeds this from the cluster manager's health service; the
+planning logic is pure and tested here. Policy: keep the ``model`` axis at
+its configured size (TP degree is baked into weight shards), shrink the
+``data``(/``pod``) axes to the largest supported DP degree, and resume from
+the latest checkpoint (the stateless data pipeline needs only the step
+counter). The planning is the JAX package's; building the mesh waits for
+the port's distributed slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    shape: tuple
+    axes: tuple
+    dropped_devices: int
+    world: int
+
+    @property
+    def dp_degree(self) -> int:
+        n = 1
+        for ax, s in zip(self.axes, self.shape):
+            if ax in ("pod", "data"):
+                n *= s
+        return n
+
+
+def plan_mesh(n_healthy: int, *, model_parallel: int = 16,
+              prefer_pods: bool = True) -> Optional[MeshPlan]:
+    """Largest mesh with a fixed TP degree that fits the healthy devices."""
+    if n_healthy < model_parallel:
+        return None
+    dp = n_healthy // model_parallel
+    if prefer_pods and dp >= 32 and dp % 16 == 0:
+        pods = dp // 16
+        return MeshPlan((pods, 16, model_parallel), ("pod", "data", "model"),
+                        n_healthy - pods * 16 * model_parallel,
+                        pods * 16 * model_parallel)
+    return MeshPlan((dp, model_parallel), ("data", "model"),
+                    n_healthy - dp * model_parallel, dp * model_parallel)
+
+
+def build_mesh(plan: MeshPlan, devices=None):
+    """A device mesh for ``plan``: waits for the port's distributed slice
+    (ROADMAP, Queue A, item 4)."""
+    raise NotImplementedError(
+        "build_mesh waits for the distributed slice of repro_torch "
+        "(ROADMAP, Queue A, item 4)")

@@ -9,7 +9,9 @@
 
 The names are the JAX package's (``efta_pallas`` was its Pallas kernel).
 Every implementation returns ``(out, FTReport)`` with per-row (B, 5)
-counts.
+counts. ``efta_pallas`` is forward only: called on inputs that require a
+gradient, with gradients on, it raises ``NotImplementedError``, on the CPU
+as on the card, as the JAX package's kernel does under ``jax.grad``.
 
 ``gather_block_kv`` materializes a paged pool's block tables into the
 contiguous per-request layout above: the paged engine's ``gather`` backend
@@ -63,6 +65,14 @@ def attention(q, k, v, *, impl: str = "efta",
                               sm_scale=sm_scale, fault=fault,
                               kv_positions=kv_positions)
     if impl == "efta_pallas":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            # as in the JAX package, whose Pallas kernel has no VJP: the
+            # kernel (and its plain version standing in for it on the CPU)
+            # is forward only; training runs impl="efta"
+            raise NotImplementedError(
+                "efta_pallas has no backward pass: differentiate through "
+                "attn_impl='efta'")
         if kv_positions is not None or _nonzero(q_offset) or (
                 kv_len is not None
                 and not isinstance(kv_len, (int, np.integer))):

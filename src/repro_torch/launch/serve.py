@@ -17,12 +17,14 @@ default, the checksummed paged engine with ``--paged``.
   python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b-smoke --device cpu \\
       --paged --kernel fused
   python -m repro_torch.launch.serve --arch rwkv6-7b-smoke --device cpu
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-11b-smoke \
+      --device cpu --attn-impl efta_pallas
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given. ``--speculate`` implies ``--paged``; the paged
 backend defaults to ``gather``, as in the JAX package. The engines serve
 the decoder-only attention families (dense, moe); the encoder,
-encoder-decoder, ssm and hybrid families go through the static-batch
+encoder-decoder, ssm, hybrid and vlm families go through the static-batch
 greedy loop (``greedy_generate``).
 """
 from __future__ import annotations
@@ -45,16 +47,17 @@ from repro_torch.serve import (PagedServeEngine, SamplingParams, ServeEngine,
 
 def _static_batch_serve(cfg, model, params, rng, args, log):
     """The families the continuous-batching engines do not serve (the
-    encoder, encoder-decoder, ssm and hybrid ones): one static batch of
-    ``--requests`` prompts of ``--max-prompt`` random tokens through
-    ``greedy_generate``, with random frontend frames (audio) or encoder
-    tokens of ones (enc-dec, 8 per request)."""
+    encoder, encoder-decoder, ssm, hybrid and vlm ones): one static batch
+    of ``--requests`` prompts of ``--max-prompt`` random tokens through
+    ``greedy_generate``, with random frontend frames (audio) or patch
+    embeddings (vlm), or encoder tokens of ones (enc-dec, 8 per
+    request)."""
     dev = model.device
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, size=(args.requests, args.max_prompt)),
         device=dev).long()
     kw = {}
-    if cfg.family == "audio":
+    if cfg.family in ("vlm", "audio"):
         kw["frontend"] = torch.as_tensor(rng.standard_normal(
             (args.requests, cfg.frontend_tokens, cfg.d_model)) * 0.1,
             dtype=torch.float32, device=dev)

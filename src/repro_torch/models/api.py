@@ -1,6 +1,8 @@
 """Public model API: build a model on a device, draw or convert its
-parameters, and run it — full-sequence logits, ring-cache prefill and
-decode, and the unified serving step over a paged cache."""
+parameters, and run it — the training loss, full-sequence logits,
+ring-cache prefill and decode, and the unified serving step over a paged
+cache. The serving entry points run with gradients off and build no
+autograd graph; the loss and the logits are differentiable."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -9,9 +11,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import KVCache
 from repro_torch.models.attention import init_cache as init_attn_cache
-from repro_torch.models.transformer import (ENC_DEC, HybridCache, forward,
-                                            init_params)
+from repro_torch.models.transformer import (ENC_DEC, HybridCache, VLMCache,
+                                            forward, init_params, n_super)
+
+Z_LOSS = 1e-4
 
 
 def resolve_device(device) -> torch.device:
@@ -45,11 +50,41 @@ class Model:
     def init(self, generator: torch.Generator) -> Any:
         return init_params(generator, self.cfg, self.device)
 
+    def loss(self, params, batch):
+        """The training loss of ``batch`` (``tokens`` and ``targets`` (B, S)
+        int, optional ``loss_mask`` (B, S), and ``frontend`` or
+        ``enc_tokens`` as :meth:`logits` takes them): mean cross-entropy
+        over the masked positions, plus 1e-4 x the mean squared
+        log-partition (z-loss), plus ``router_aux_weight`` x the MoE aux
+        loss. Returns (total f32 scalar, metrics) with the JAX package's
+        keys: ``loss``, ``ce``, ``z_loss``, ``aux``, and ``ft_detected`` /
+        ``ft_corrected`` (5,) summed over the batch. Differentiable."""
+        logits, rep, aux, _ = forward(
+            params, self.cfg, batch["tokens"], mode="train",
+            frontend=batch.get("frontend"),
+            enc_tokens=batch.get("enc_tokens"), return_aux=True)
+        targets = batch["targets"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, targets[..., None])[..., 0] - logz
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+        denom = mask.sum().clamp(min=1.0)
+        ce = -(ll * mask).sum() / denom
+        zl = Z_LOSS * (logz.square() * mask).sum() / denom
+        total = ce + zl
+        if self.cfg.moe is not None:
+            total = total + self.cfg.moe.router_aux_weight * aux
+        metrics = {"loss": total, "ce": ce, "z_loss": zl, "aux": aux,
+                   "ft_detected": rep.detected.sum(dim=0),
+                   "ft_corrected": rep.corrected.sum(dim=0)}
+        return total, metrics
+
     def logits(self, params, batch):
         """Full-sequence forward of ``batch["tokens"]`` (B, S), causal
         except in the ``encoder`` family; ``batch["frontend"]`` or
         ``batch["enc_tokens"]`` feed the encoder of the encoder-decoder
-        families. Returns (logits f32 (B, S, V), FTReport)."""
+        families or the VLM's cross-attention. Returns (logits f32 (B, S,
+        V), FTReport)."""
         out, rep, _ = forward(params, self.cfg, batch["tokens"], mode="train",
                               frontend=batch.get("frontend"),
                               enc_tokens=batch.get("enc_tokens"))
@@ -60,15 +95,31 @@ class Model:
         KV caches (the encoder-decoder families also get a cross-memory
         placeholder of ``max(frontend_tokens, 1)`` rows, which prefill
         replaces); for the ``ssm`` family zeroed rwkv6 states, for
-        ``hybrid`` a :class:`HybridCache` of both."""
+        ``hybrid`` a :class:`HybridCache` of both, for ``vlm`` a
+        :class:`VLMCache` (the cross blocks' memory placeholder has
+        ``frontend_tokens`` rows)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         L = cfg.num_layers
+        cache_len = cache_len or cfg.max_seq
         if cfg.family == "ssm":
             return ssm_lib.rwkv_state_init(batch, cfg.d_model, cfg.ssm, dtype,
                                            self.device, num_layers=L)
+        if cfg.family == "vlm":
+            ns, ce = n_super(cfg), cfg.cross_attn_every
+            dense = init_attn_cache(batch, cfg.attn, cache_len=cache_len,
+                                    dtype=dtype, device=self.device,
+                                    num_layers=ns * (ce - 1))
+            shape = (ns, ce - 1) + tuple(dense.k.shape[1:])
+            return VLMCache(
+                dense=KVCache(k=dense.k.view(shape), v=dense.v.view(shape),
+                              pos=dense.pos),
+                cross_blk=init_attn_cache(
+                    batch, cfg.attn, cache_len=cache_len, dtype=dtype,
+                    device=self.device, num_layers=ns,
+                    cross_len=cfg.frontend_tokens))
         attn = init_attn_cache(
-            batch, cfg.attn, cache_len=cache_len or cfg.max_seq,
+            batch, cfg.attn, cache_len=cache_len,
             dtype=dtype, device=self.device, num_layers=L,
             cross_len=max(cfg.frontend_tokens, 1)
             if cfg.family in ENC_DEC else 0)
@@ -78,21 +129,24 @@ class Model:
                 num_layers=L))
         return attn
 
+    @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, cache, *,
                 frontend=None, enc_tokens=None, lengths=None, fault=None):
         """Process the prompt (B, S) into a fresh ring ``cache`` (and, for
         the encoder-decoder families, encode ``frontend`` or
-        ``enc_tokens`` into the cache's cross memory). Returns (logits (B,
-        V) at each row's last token ``lengths - 1`` (None = the last
-        column), FTReport, cache). Causality keeps the gathered logits free
-        of the padding; the serve engine rewinds each slot's position to
-        its true length. ``fault``: a FaultSpec."""
+        ``enc_tokens`` into the cache's cross memory; for the VLM, project
+        ``frontend`` into it). Returns (logits (B, V) at each row's last
+        token ``lengths - 1`` (None = the last column), FTReport, cache).
+        Causality keeps the gathered logits free of the padding; the serve
+        engine rewinds each slot's position to its true length. ``fault``:
+        a FaultSpec."""
         logits, rep, new_cache = forward(params, self.cfg, tokens,
                                          cache=cache, mode="prefill",
                                          fault=fault, frontend=frontend,
                                          enc_tokens=enc_tokens)
         return _last_logits(logits, lengths), rep, new_cache
 
+    @torch.no_grad()
     def decode_step(self, params, token: torch.Tensor, cache, *,
                     fault=None, independent_rows: bool = False):
         """token: (B, 1), each row at its own cache position. Returns
@@ -106,6 +160,7 @@ class Model:
                                          independent_rows=independent_rows)
         return logits[:, -1, :], rep, new_cache
 
+    @torch.no_grad()
     def score(self, params, tokens: torch.Tensor, cache, *, fault=None,
               independent_rows: bool = False):
         """The unified chunked step returning FULL per-row logits (B, S, V)
@@ -114,6 +169,7 @@ class Model:
         return forward(params, self.cfg, tokens, cache=cache, mode="decode",
                        fault=fault, independent_rows=independent_rows)
 
+    @torch.no_grad()
     def extend(self, params, tokens: torch.Tensor, cache, *,
                lengths: Optional[torch.Tensor] = None, fault=None):
         """:meth:`score` returning only each row's logits at its true last

@@ -11,6 +11,11 @@ reference keeps in f32 whatever the model's dtype (the MoE router, mamba's
 ``A_log`` and ``D``, rwkv6's ``w_base``, ``u`` and ``ln_x``). The tensors
 land on the card unless the caller asks for the CPU (``device="cpu"``), as
 every entry point of the port does.
+
+``from_reference_train_state`` carries a whole training state across: the
+reference's ``TrainState`` (params, ``AdamWState(m, v, count)``, step) with
+numpy leaves becomes the port's, moments in the dtype they were stored in
+(the parameter's, or the optimizer's ``state_dtype``).
 """
 from __future__ import annotations
 
@@ -49,3 +54,30 @@ def from_reference_params(params_np, cfg: ModelConfig, device="cuda"
         return t
 
     return conv(params_np, "")
+
+
+def from_reference_train_state(state_np, cfg: ModelConfig, device="cuda"):
+    """The reference's ``TrainState`` with numpy leaves (read by attribute:
+    ``params``, ``opt.m``, ``opt.v``, ``opt.count``, ``step``) as the
+    port's :class:`~repro_torch.train.state.TrainState`. The compressed
+    sync's ``ef`` residuals are not carried (the port runs
+    ``pod_sync="dense"``)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.state import TrainState
+    device = resolve_device(device)
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        return _tensor(tree, device)
+
+    def scalar(x):
+        return torch.as_tensor(np.array(x), dtype=torch.int32,
+                               device=device)
+
+    opt = state_np.opt
+    return TrainState(
+        params=from_reference_params(state_np.params, cfg, device=device),
+        opt=AdamWState(m=moments(opt.m), v=moments(opt.v),
+                       count=scalar(opt.count)),
+        step=scalar(state_np.step))

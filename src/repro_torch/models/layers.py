@@ -121,7 +121,11 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device):
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """Rows of ``params["table"]`` by token id, through ``F.embedding``,
+    whose backward PyTorch does not list among its nondeterministic CUDA
+    operations (the backward of plain indexing accumulates with atomics
+    unless deterministic algorithms are forced)."""
+    return F.embedding(tokens, params["table"])
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

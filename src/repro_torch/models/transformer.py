@@ -1,29 +1,42 @@
 """Model assembly: parameters, per-layer flags and the forward pass, as a
-Python loop over layers: the full-sequence forward (``mode="train"``,
-logits only, no gradient), ring-cache prefill and decode, and the unified
-serving step over a paged cache.
+Python loop over layers: the full-sequence forward (``mode="train"``:
+logits and, under autograd, the training loss's gradients), ring-cache
+prefill and decode, and the unified serving step over a paged cache.
 
 Families ported: ``dense`` (decoder only), ``encoder`` (BERT: the same
 blocks, non-causal), the encoder-decoder ``encdec`` (T5: a token encoder)
 and ``audio`` (Whisper: precomputed frontend frames), whose decoder blocks
 cross-attend to the encoder's memory, ``moe`` (the MLP replaced by a routed
 mixture of experts, plus kimi's shared expert or arctic's dense residual
-MLP), ``ssm`` (RWKV6: time mix and channel mix, no attention) and
-``hybrid`` (Hymba: attention and mamba heads in parallel on the same
-input, averaged). ``vlm`` is not ported yet.
+MLP), ``ssm`` (RWKV6: time mix and channel mix, no attention), ``hybrid``
+(Hymba: attention and mamba heads in parallel on the same input, averaged)
+and ``vlm`` (Llama 3.2 Vision: superblocks of ``cross_attn_every - 1``
+dense blocks and one block that also cross-attends to the frontend's
+precomputed patch embeddings).
 
 Parameters keep the JAX package's pytree layout — ``blocks`` (and
-``encoder``) hold every layer's tensors stacked on a leading layer axis —
-so weights convert across unchanged (``repro_torch.models.convert``). They
-are drawn layer by layer straight into the stacked tensors.
+``encoder``) hold every layer's tensors stacked on a leading layer axis,
+the VLM's ``blocks`` a ``dense`` stack (n_super, cross_attn_every - 1, ...)
+and a ``cross_blk`` stack (n_super, ...) — so weights convert across
+unchanged (``repro_torch.models.convert``). They are drawn layer by layer
+straight into the stacked tensors.
+
+Under autograd (``mode="train"`` with gradients on) each block, and each
+VLM superblock, is rematerialised as ``cfg.remat`` says, as the JAX
+package's ``_maybe_remat`` does: ``"full"`` recomputes it in the backward
+pass, ``"dots"`` keeps the outputs of its projection products (2-D weight
+matmuls) and recomputes the rest, ``"none"`` keeps everything.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.efta import FTReport
@@ -35,6 +48,7 @@ from repro_torch.models.layers import (embed_apply, embed_init,
                                        learned_pos_init, mlp_apply, mlp_init,
                                        norm_apply, norm_init, unembed)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def layer_flags(cfg: ModelConfig) -> Dict[str, np.ndarray]:
@@ -58,7 +72,8 @@ def layer_flags(cfg: ModelConfig) -> Dict[str, np.ndarray]:
     return {"is_global": is_global, "theta": theta}
 
 
-FAMILIES = ("dense", "encoder", "encdec", "audio", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "encoder", "encdec", "audio", "moe", "ssm", "hybrid",
+            "vlm")
 ENC_DEC = ("encdec", "audio")
 
 
@@ -66,8 +81,20 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES or (cfg.attn is None) != (
             cfg.family == "ssm"):
         raise NotImplementedError(
-            f"repro_torch ports the {'/'.join(FAMILIES)} families so far "
-            f"(vlm is not ported); {cfg.name} is {cfg.family!r}")
+            f"repro_torch ports the {'/'.join(FAMILIES)} families; "
+            f"{cfg.name} is {cfg.family!r}")
+    if cfg.family == "vlm" and (cfg.cross_attn_every < 1 or
+                                cfg.num_layers % cfg.cross_attn_every):
+        raise NotImplementedError(
+            f"{cfg.name}: the vlm superblocks need cross_attn_every >= 1 "
+            f"dividing num_layers ({cfg.cross_attn_every}, "
+            f"{cfg.num_layers})")
+
+
+def n_super(cfg: ModelConfig) -> int:
+    """The VLM's superblocks: ``cross_attn_every - 1`` dense blocks and one
+    cross block each."""
+    return cfg.num_layers // cfg.cross_attn_every
 
 
 @dataclasses.dataclass
@@ -83,6 +110,23 @@ class HybridCache:
     @property
     def pos(self) -> torch.Tensor:
         return self.attn.pos
+
+
+@dataclasses.dataclass
+class VLMCache:
+    """The ``vlm`` family's serving state, in the JAX package's layout:
+    ``dense`` the ring :class:`KVCache` of the dense blocks, k/v (n_super,
+    cross_attn_every - 1, B, Hkv, T, hd); ``cross_blk`` that of the cross
+    blocks, k/v (n_super, B, Hkv, T, hd), with the cross memory ``ck``/
+    ``cv`` (n_super, B, Hkv, M, hd) that prefill projects from the
+    frontend and decode reads. Both carry the same ``pos``."""
+
+    dense: KVCache
+    cross_blk: KVCache
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.cross_blk.pos
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device, *,
@@ -174,15 +218,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device
     if enc_dec:
         params["encoder"] = _stacked_init(gen, cfg, gd, cfg.encoder_layers)
         params["enc_norm"] = norm_init(cfg.norm, cfg.d_model, dtype, gd)
-    params["blocks"] = _stacked_init(gen, cfg, gd, cfg.num_layers,
-                                     cross=enc_dec)
+    if cfg.family == "vlm":
+        ns, ce = n_super(cfg), cfg.cross_attn_every
+        dense = _stacked_init(gen, cfg, gd, ns * (ce - 1))
+        params["blocks"] = {
+            "dense": tree_map(lambda t: t.view((ns, ce - 1) + t.shape[1:]),
+                              dense),
+            "cross_blk": _stacked_init(gen, cfg, gd, ns, cross=True)}
+    else:
+        params["blocks"] = _stacked_init(gen, cfg, gd, cfg.num_layers,
+                                         cross=enc_dec)
     return _to(params, device)
 
 
 def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 class BlockOut(NamedTuple):
@@ -264,6 +314,31 @@ def _block_apply(params, x, *, cfg: ModelConfig, is_global: bool,
     return BlockOut(x + y, rep, bad, kv, aux, new_state)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the 2-D weight products (the
+    JAX package's ``checkpoint_dots_with_no_batch_dims``: the projections
+    and MLPs; the attention's batched products are recomputed)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_call(remat: str, mode: str, fn, /, *args, **kw):
+    """``fn(*args, **kw)``, rematerialised as ``remat`` (``cfg.remat``)
+    says when it runs under autograd (``mode="train"``, gradients on, a
+    tensor of ``args`` requiring them); as it is otherwise."""
+    if remat == "none" or mode != "train" or not torch.is_grad_enabled() \
+            or not any(t.requires_grad for t in tree_leaves(args)):
+        return fn(*args, **kw)
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **extra, **kw)
+
+
 def _encode(params, cfg: ModelConfig, *, frontend, enc_tokens, dtype):
     """The encoder pass of the encoder-decoder families: ``frontend``
     frames (B, M, d_model) or embedded ``enc_tokens`` (B, M), every layer
@@ -277,18 +352,19 @@ def _encode(params, cfg: ModelConfig, *, frontend, enc_tokens, dtype):
     enc_pos = torch.arange(m, device=enc_x.device)[None, :].expand(b, m)
     rep = FTReport.zero(b, device=enc_x.device)
     for i in range(cfg.encoder_layers):
-        out = _block_apply(
-            _index(params["encoder"], i), enc_x, cfg=cfg, is_global=True,
-            theta=cfg.attn.rope_theta, cache=None, mode="train",
-            positions=enc_pos, fault=None, causal=False)
+        out = _remat_call(
+            cfg.remat, "train", _block_apply, _index(params["encoder"], i),
+            enc_x, cfg=cfg, is_global=True, theta=cfg.attn.rope_theta,
+            cache=None, mode="train", positions=enc_pos, fault=None,
+            causal=False)
         enc_x = out.x
         rep = rep.merge(out.rep)
     return norm_apply(cfg.norm, params["enc_norm"], enc_x), rep
 
 
 def _check_cache(cfg: ModelConfig, cache, mode: str) -> None:
-    ring = {"ssm": ssm_lib.RWKVState, "hybrid": HybridCache}.get(
-        cfg.family, KVCache)
+    ring = {"ssm": ssm_lib.RWKVState, "hybrid": HybridCache,
+            "vlm": VLMCache}.get(cfg.family, KVCache)
     paged = isinstance(cache, PagedKVCache)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -310,20 +386,45 @@ def _layer_cache(cache, i: int):
     return cache.layer(i), None
 
 
-@torch.no_grad()
+def _vlm_superblock(sp, x, *, cfg: ModelConfig, cache, mode, positions,
+                    fault, memory):
+    """One VLM superblock: ``cross_attn_every - 1`` dense blocks, which the
+    SEU ``fault`` strikes, then the cross block (self-attention,
+    cross-attention to ``memory`` or, in decode, to the cache's ``ck``/
+    ``cv``, then the MLP), which it does not, as in the JAX package. Every
+    layer is global at the config's rope theta. ``cache``: the superblock's
+    (dense KVCache (ce-1, ...), cross KVCache) or None. Returns (x,
+    FTReport, the cross K/V to keep, or None)."""
+    theta = cfg.attn.rope_theta
+    rep = FTReport.zero(x.shape[0], device=x.device)
+    for i in range(cfg.cross_attn_every - 1):
+        out = _block_apply(
+            _index(sp["dense"], i), x, cfg=cfg, is_global=True, theta=theta,
+            cache=None if cache is None else cache[0].layer(i), mode=mode,
+            positions=positions, fault=fault)
+        x = out.x
+        rep = rep.merge(out.rep)
+    out = _block_apply(
+        sp["cross_blk"], x, cfg=cfg, is_global=True, theta=theta,
+        cache=None if cache is None else cache[1], mode=mode,
+        positions=positions, fault=None, memory=memory)
+    return out.x, rep.merge(out.rep), out.cross_kv
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
             mode: str = "train", fault=None, frontend=None, enc_tokens=None,
             independent_rows: bool = False, return_aux: bool = False):
     """The model forward. ``tokens`` (B, S) are the decoder's (or, for the
     ``encoder`` family, the encoder's) tokens; ``frontend`` (B, M,
-    d_model) frames (``audio``) or ``enc_tokens`` (B, M) (``encdec``) feed
-    the encoder of the encoder-decoder families in ``mode`` "train" and
-    "prefill" — the keys of the JAX package's ``batch`` dict. Decode reads
-    the cross memory from the cache instead.
+    d_model) frames (``audio``), patch embeddings (``vlm``) or
+    ``enc_tokens`` (B, M) (``encdec``) feed the encoder of the
+    encoder-decoder families, or the VLM's cross-attention, in ``mode``
+    "train" and "prefill" — the keys of the JAX package's ``batch`` dict.
+    Decode reads the cross memory from the cache instead.
 
-    * ``mode="train"``, no cache: the full sequence (logits only; the port
-      has no training step yet), causally except in the ``encoder``
-      family.
+    * ``mode="train"``, no cache: the full sequence, causally except in
+      the ``encoder`` family; differentiable, rematerialised as
+      ``cfg.remat`` says when gradients are on.
     * ``mode="prefill"``, a fresh cache: the prompt at positions
       ``0..S-1``, filling every layer's ring (and SSM state).
     * ``mode="decode"``: row ``c`` of request ``b`` at position
@@ -333,8 +434,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
 
     The cache is a :class:`KVCache` (or :class:`PagedKVCache`); for the
     ``ssm`` family a stacked :class:`~repro_torch.models.ssm.RWKVState`,
-    for ``hybrid`` a :class:`HybridCache`. ``independent_rows`` routes the
-    MoE of each row on its own, as a batch-1 call per row would.
+    for ``hybrid`` a :class:`HybridCache`, for ``vlm`` a
+    :class:`VLMCache`. ``independent_rows`` routes the MoE of each row on
+    its own, as a batch-1 call per row would.
 
     Returns (logits f32 (B, S, V), FTReport with (B, 5) per-row counts, new
     cache or None); with ``return_aux`` (logits, FTReport, the MoE aux loss
@@ -342,7 +444,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     JAX package's order. A new cache has ``pos`` advanced (by ``q_len`` on
     the paged path, to ``S`` after prefill) and, paged, the step's ``bad``
     plane; SSM states are new tensors. ``fault`` strikes every layer's
-    attention (a superset of the single-layer SEU)."""
+    self-attention (a superset of the single-layer SEU), the VLM's cross
+    blocks excepted."""
     _check_family(cfg)
     _check_cache(cfg, cache, mode)
     paged = isinstance(cache, PagedKVCache)
@@ -359,7 +462,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
         positions = steps[None, :].expand(b, s)
     if "pos" in params:
         table = params["pos"]["pos"]
-        x = x + table[positions.clamp(max=table.shape[0] - 1)].to(x.dtype)
+        x = x + embed_apply({"table": table},
+                            positions.clamp(max=table.shape[0] - 1)
+                            ).to(x.dtype)
     flags = layer_flags(cfg)
     rep = FTReport.zero(b, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -367,28 +472,49 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     if fam in ENC_DEC and mode != "decode":
         memory, rep = _encode(params, cfg, frontend=frontend,
                               enc_tokens=enc_tokens, dtype=x.dtype)
+    if fam == "vlm" and mode != "decode":
+        if frontend is None:
+            raise ValueError(f"{cfg.name}: the vlm family's {mode} needs "
+                             f"the frontend's patch embeddings")
+        memory = frontend.to(x.dtype)
     bad = torch.zeros_like(cache.bad) if paged else None
     cross_kv, states = [], []
-    for i in range(cfg.num_layers):
-        layer_cache, state = _layer_cache(cache, i)
-        out = _block_apply(
-            _index(params["blocks"], i), x, cfg=cfg,
-            is_global=bool(flags["is_global"][i]),
-            theta=float(flags["theta"][i]), cache=layer_cache, mode=mode,
-            positions=positions, fault=fault, causal=causal, memory=memory,
-            state=state, independent_rows=independent_rows)
-        x = out.x
-        rep = rep.merge(out.rep)
-        aux = aux + out.aux
-        if paged:
-            bad = torch.maximum(bad, out.bad)
-        if out.cross_kv is not None:
-            cross_kv.append(out.cross_kv)
-        states.append(out.state)
+    if fam == "vlm":
+        for i in range(n_super(cfg)):
+            sc = None if cache is None else (cache.dense.layer(i),
+                                             cache.cross_blk.layer(i))
+            x, rep_i, kv = _remat_call(
+                cfg.remat, mode, _vlm_superblock,
+                _index(params["blocks"], i), x, cfg=cfg, cache=sc,
+                mode=mode, positions=positions, fault=fault, memory=memory)
+            rep = rep.merge(rep_i)
+            cross_kv.append(kv)
+    else:
+        for i in range(cfg.num_layers):
+            layer_cache, state = _layer_cache(cache, i)
+            out = _remat_call(
+                cfg.remat, mode, _block_apply, _index(params["blocks"], i), x,
+                cfg=cfg, is_global=bool(flags["is_global"][i]),
+                theta=float(flags["theta"][i]), cache=layer_cache,
+                mode=mode, positions=positions, fault=fault, causal=causal,
+                memory=memory, state=state,
+                independent_rows=independent_rows)
+            x = out.x
+            rep = rep.merge(out.rep)
+            aux = aux + out.aux
+            if paged:
+                bad = torch.maximum(bad, out.bad)
+            if out.cross_kv is not None:
+                cross_kv.append(out.cross_kv)
+            states.append(out.state)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     table = params.get("lm_head", params["embed"])["table"]
     logits = unembed(x, table)
     new_pos = (positions[:, -1] + 1).to(torch.int32)
+    cross = {}
+    if mode == "prefill" and cross_kv:
+        cross = dict(ck=torch.stack([k for k, _ in cross_kv]),
+                     cv=torch.stack([v for _, v in cross_kv]))
     if cache is None:
         new_cache = None
     elif paged:
@@ -401,11 +527,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
         new_cache = HybridCache(
             attn=dataclasses.replace(cache.attn, pos=new_pos),
             mamba=ssm_lib.stack_states(states))
+    elif fam == "vlm":
+        new_cache = VLMCache(
+            dense=dataclasses.replace(cache.dense, pos=new_pos),
+            cross_blk=dataclasses.replace(cache.cross_blk, pos=new_pos,
+                                          **cross))
     else:
-        cross = {}
-        if mode == "prefill" and cross_kv:
-            cross = dict(ck=torch.stack([k for k, _ in cross_kv]),
-                         cv=torch.stack([v for _, v in cross_kv]))
         new_cache = dataclasses.replace(cache, pos=new_pos, **cross)
     if return_aux:
         return logits, rep, aux, new_cache

@@ -246,6 +246,7 @@ class ServeEngine:
             need = need[list(rows)]
         return bool(need.any())
 
+    @torch.no_grad()
     def step(self, faults: Optional[FaultSpec] = None) -> List[Request]:
         """One engine iteration: schedule, (re)decode, commit. Returns the
         requests that finished during this iteration. ``faults`` is an

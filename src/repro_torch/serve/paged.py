@@ -1174,6 +1174,7 @@ class PagedServeEngine(ServeEngine):
 
     # -- stepping -----------------------------------------------------------
 
+    @torch.no_grad()
     def step(self, faults: Optional[FaultSpec] = None) -> List[Request]:
         """One engine iteration. EFTA in-compute SEUs behave as in the ring
         engine; additionally every KV block read is checksum-verified, and a

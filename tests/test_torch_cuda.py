@@ -350,6 +350,38 @@ def test_contiguous_kernel_moe_heads(regime, dtype, site):
         assert int(got[1].sum()) >= 1
 
 
+# llama-3.2-vision-11b's attention under efta_pallas at block_kv 64 (its
+# 1,600 frontend rows are 25 blocks; 512 do not divide them): 32 heads of
+# 128 on 8 KV heads, the causal self-attention prefill of a 512-token
+# prompt, and the cross-attention of that prompt and of one decode row to
+# the 1,600 rows
+VLM_B2 = {"vlm_self_prefill": dict(Sq=512, Skv=512, causal=True),
+          "vlm_cross_prefill": dict(Sq=512, Skv=1600, causal=False),
+          "vlm_cross_decode": dict(Sq=1, Skv=1600, causal=False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(VLM_B2))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+def test_contiguous_kernel_vlm_regimes(regime, dtype, site):
+    dev = cuda_or_skip()
+    shape = dict(VLM_B2[regime])
+    causal = shape.pop("causal")
+    q, k, v = _contig(dev, dtype, H=32, Hkv=8, D=128, seed=13, **shape)
+    row = shape["Sq"] - 1
+    fault = None if site is None else [int(site), 0, 3, row, 5, 30, 1, 0]
+    kw = dict(cfg=EFTAConfig(mode="correct", block_kv=64), causal=causal,
+              fault=fault)
+    got = efta_attention(q, k, v, **kw)
+    _same(got, efta_attention_torch(q, k, v, **kw))
+    if site is None:
+        assert int(got[1].sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP):
+        assert int(got[1].sum()) >= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("regime", sorted(B2_REGIMES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``repro_torch`` imports JAX or the JAX
-package, and every module imports in a process where ``jax`` cannot be
-imported at all."""
+package, and every module imports in a process where ``jax``, the JAX
+package and ``ml_dtypes`` (a JAX dependency) cannot be imported at all."""
 import os
 import re
 import subprocess
@@ -9,7 +9,7 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)",
                        re.MULTILINE)
 
 
@@ -29,13 +29,14 @@ def test_every_module_imports_without_jax():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'jax' not in [k for k, v in sys.modules.items() "
-        "if v is not None]\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert 'jax' not in loaded and 'ml_dtypes' not in loaded\n"
         "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -44,4 +45,6 @@ def test_every_module_imports_without_jax():
     names = set(out.stdout.split())
     assert len(names) >= 20
     assert {"repro_torch.core.abft_gemm", "repro_torch.core.decoupled",
-            "repro_torch.models.transformer"} <= names
+            "repro_torch.models.transformer", "repro_torch.train.step",
+            "repro_torch.optim.adamw", "repro_torch.ft_runtime.checkpoint",
+            "repro_torch.data.pipeline"} <= names
