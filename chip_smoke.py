@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only dist,vlm,train]
 
 Run from the root of a checkout. Phases, each printing one JSON line:
 
@@ -179,6 +179,19 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              peak memory, a profiled step's busy share and top kernels,
              plain EFTA's share of the step.
 
+dist     — distributed training on two gloo ranks that share the card
+             (subprocesses of this script on cuda:0; nccl refuses two
+             ranks on one device, so its path is written but not run):
+             (a) gpt2 at full width and depth, f32, on mesh (pod 2), 3
+             steps under ``dense`` (against a one-process run of the same
+             global batch) and under ``int8_ef``, replicated blocks
+             bit-equal after every step; (c) a ZeRO-3 state saved from
+             (data 2) and restored on (pod 2) and in one process, bit for
+             bit both ways; (b) one MoE layer at arctic-480b's published
+             width, 64 experts a rank: ``_moe_apply_ep`` on (model 2) and
+             ``_moe_inference_ep`` on (data 2) against the one-device
+             layer. Step times and the bytes of each collective.
+
 Phases 11-13 report tokens/s, steps, forwards, B1 launches and the
 acceptance rate of runs without the profiler, and the device's busy share
 over a window of steps (profiler, CUDA activity) of one run each that is
@@ -187,8 +200,9 @@ gather run with a flip after its repair. The kernels line carries B2's
 numbers in the regimes of phases 16-20 and 22 and B1's in those of phase
 19 under ``regimes``.
 
-The phases run in the order 1-5, 7-9, 14-19, 22, 20, 23, 6, 10, 21,
-11-13: after profiled runs of a few hundred thousand launches the profiler
+The phases run in the order 1, 2, dist (while this process holds next
+to nothing on the card), 3-5, 7-9, 14-19, 22, 20, 23, 6, 10, 21, 11-13:
+after profiled runs of a few hundred thousand launches the profiler
 drops kernel records from later windows (seen on the card), so the
 whole-run profiles (6, 10) and the profiled windows of 11-13 and 20-23
 come after every per-kernel timing (phase 22's B2 timings came back
@@ -3446,13 +3460,484 @@ def phase_train(torch, np, seed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase dist: distributed training on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+DIST_WORLD = 2           # ranks, both on cuda:0 (nccl refuses that: gloo)
+DIST_WAIT_S = 600        # the ranks' deadline, and each collective's timeout
+DIST_STEPS = 3
+DIST_BATCH, DIST_SEQ = 4, 1024    # the global batch, split over 'pod'
+DIST_LR = 1e-3
+# An AdamW step moves a weight by about lr where m / sqrt(v) is +-1: a
+# gradient element that f32 reduction order leaves with either sign can
+# end a step 2 lr apart; elsewhere the weights agree to the update's last
+# bits (1e-3 lr)
+DIST_ADAM_SLACK = 2 * DIST_STEPS * DIST_LR
+DIST_TIGHT = 1e-3 * DIST_LR
+# After one step the two syncs' weights part: Adam's first steps follow
+# sign(g), and the int8 rounding zeroes every gradient element under half
+# a quantization step of its leaf (its share waits in the residual), so
+# other weights move; the loss of the next batches is held to 3%
+DIST_INT8_REL = 3e-2
+MOE_ARCH = "arctic-480b"
+MOE_TRAIN_TOKENS = 4096  # one rank's training tokens (B 8 x S 512)
+MOE_DECODE_TOKENS = 64   # a decode batch, split over 'data'
+
+
+def phase_dist(torch, np, seed, card):
+    """Distributed training on ``DIST_WORLD`` gloo ranks that share the
+    card, each a subprocess of this script (``--dist-rank``) on cuda:0,
+    meeting through a ``file://`` store in a fresh directory under
+    ``build/``; every wait has a deadline and a failure kills every rank.
+    CUDA tensors cross gloo through host buffers (the collectives' rule
+    for a gloo group); the nccl path is written but needs a card a rank,
+    which this machine does not have.
+
+    (a) gpt2 at full width and depth in f32 on mesh (pod 2), B 4 x 1,024
+        (an uneven loss mask), ``DIST_STEPS`` steps under ``dense`` and
+        under ``int8_ef``. ``dense`` against a one-process dense run of the
+        same global batch on the card: the loss of each step to 1e-5
+        relative, the final weights within ``DIST_ADAM_SLACK`` and all but
+        0.1% of each leaf within ``DIST_TIGHT``, the moments within 1e-5
+        of each leaf's largest (f32 reduction order is the only
+        difference). ``int8_ef``: its loss is the mean of the pods' means
+        (not the global mean: the reference's rule), held against that
+        mean under ``dense``'s weights of the same step: to 1e-5 at step
+        1 (the same weights), to ``DIST_INT8_REL`` after (the compressed
+        gradients move other weights);
+        ``|new_err| <= scale / 2`` (and bf16 rounding) on every leaf of
+        every step. After every step of both, the blocks
+        the spec replicates are bit-equal across ranks (all-gathered
+        checksums). Step times and the bytes of each kind of collective.
+    (c) checkpoint resharding: the dense state cut to ZeRO-3 blocks on
+        mesh (data 2) is saved, restored on mesh (pod 2) and in one
+        process, and a one-process save restored on (data 2): bit-equal
+        each way.
+    (b) one MoE layer at arctic-480b's published width (128 experts of
+        7,168 x 4,864, top-2), bf16, each rank holding 64 experts (13.4
+        GB): ``_moe_apply_ep`` on mesh (model 2) over 4,096 tokens and
+        ``_moe_inference_ep`` on mesh (data 2) in decode over 64 tokens
+        (32 a rank), against the one-device ``moe_apply`` (run by rank 0
+        after rank 1 has freed its experts): y within about one bf16 ulp
+        (2^-7 |ref| + 2^-8 rms(ref)), aux equal, the same dropped
+        assignments.
+    """
+    import shutil
+    import tempfile
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=build))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DIST_WORLD):
+            err = open(tmp / f"rank{r}.err", "w+")
+            logs.append(err)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--seed", str(seed), "--dist-rank", str(r),
+                 "--dist-dir", str(tmp)],
+                stdout=err, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+        deadline = time.monotonic() + DIST_WAIT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            check(time.monotonic() < deadline,
+                  f"dist: ranks ran past {DIST_WAIT_S} s")
+            time.sleep(0.2)
+        for r, (p, err) in enumerate(zip(procs, logs)):
+            if p.poll() != 0:
+                err.seek(0)
+                check(False, f"dist: rank {r} exited {p.poll()}:\n"
+                      + err.read()[-4000:])
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(DIST_WORLD)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        for err in logs:
+            err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    for r in res:
+        check(r["a"]["dense"]["losses"] == r0["a"]["dense"]["losses"],
+              "dist: the ranks' dense losses differ")
+    emit({"phase": "dist", "ok": True, "card": card,
+          "transport": "gloo, staged through host",
+          "nccl": "written, not run: one card (nccl refuses two ranks on "
+                  "one device)",
+          "ranks": DIST_WORLD, "seconds": wall,
+          "a_gpt2_pod2": r0["a"], "c_checkpoint": r0["c"],
+          "b_moe_arctic": r0["b"],
+          "rank1": {"a_step_ms": {k: v["step_ms"]
+                                  for k, v in res[1]["a"].items()
+                                  if isinstance(v, dict) and
+                                  "step_ms" in v}}})
+    return res
+
+
+def dist_rank(args) -> int:
+    """One rank of ``phase_dist``: (a), (c), (b) in that order, its
+    numbers written to ``rank<r>.json``; any failed check raises."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    rank = args.dist_rank
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{args.dist_dir}/store", rank=rank,
+        world_size=DIST_WORLD,
+        timeout=datetime.timedelta(seconds=DIST_WAIT_S))
+    try:
+        out = {}
+        out["a"], state = dist_train(torch, np, args.seed, rank)
+        print(json.dumps({"a": out["a"]}), flush=True)   # into its log
+        out["c"] = dist_checkpoint(torch, state, rank, Path(args.dist_dir))
+        print(json.dumps({"c": out["c"]}), flush=True)
+        del state
+        free(torch)
+        out["b"] = dist_moe(torch, np, args.seed, rank)
+        (Path(args.dist_dir) / f"rank{rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_batches(torch, np, cfg, seed):
+    """The global batches of (a): the synthetic pipeline with a loss mask
+    of one density a row (0.2 .. 0.9), so the two pods' counts differ."""
+    from repro_torch.data import as_tensors, make_pipeline
+    pipe = make_pipeline(cfg, global_batch=DIST_BATCH, seq_len=DIST_SEQ,
+                         seed=seed)
+    rng = np.random.default_rng(seed)
+    dens = np.linspace(0.2, 0.9, DIST_BATCH)[:, None]
+    out = []
+    for i in range(DIST_STEPS):
+        nb = pipe.batch(i)
+        nb["loss_mask"] = (rng.random((DIST_BATCH, DIST_SEQ)) < dens
+                           ).astype(np.float32)
+        out.append(as_tensors(nb, DEVICE))
+    return out
+
+
+def dist_train(torch, np, seed, rank):
+    """(a): returns (numbers, the final dense state, whole on each rank)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import Mesh, shard_tree
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import (local_block,
+                                                  replicas_disagree)
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_state, make_train_step, state_specs
+    from repro_torch.utils import tree_flatten_with_names
+    model = train_model(torch, "float32")
+    mesh = Mesh((DIST_WORLD,), ("pod",))
+    opt = AdamW(lr=DIST_LR)
+    batches = dist_batches(torch, np, model.cfg, seed)
+
+    def fresh(sync):
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(seed)
+        return init_state(model, opt, g, pod_sync=sync)
+
+    worst_err = [0.0]
+    orig = coll.compressed_psum
+
+    def checked(x, group, err=None):
+        mean, ne = orig(x, group, err)
+        xf = x.float() + (err.float() if err is not None else 0.0)
+        amax = xf.abs().max().cpu()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)  # a check
+        scale = float(amax) / 127.0 if float(amax) > 0 else 1.0
+        worst_err[0] = max(worst_err[0],
+                           float(ne.float().abs().max()) / (scale / 2))
+        return mean, ne
+
+    def pod_mean(params, b):
+        """The mean of the pods' mean losses of batch ``b`` (the
+        compressed sync's rule), each pod's on its rank."""
+        with torch.no_grad():
+            mine = model.loss(params, {
+                k: local_block(v, (("pod",),) + (None,) * (v.dim() - 1),
+                               mesh) for k, v in b.items()})[0]
+        return float(coll.all_reduce(mine, mesh.group("pod"))) / DIST_WORLD
+
+    res, pods = {}, []
+    for sync in ("dense", "int8_ef"):
+        specs = state_specs(model, mesh, pod_sync=sync)
+        st = shard_tree(fresh(sync), specs, mesh)
+        step = make_train_step(model, opt, mesh=mesh, pod_sync=sync)
+        losses, step_ms, moved, bad = [], [], [], []
+        coll.compressed_psum = checked
+        try:
+            for b in batches:
+                if sync == "dense":
+                    pods.append(pod_mean(st.params, b))
+                coll.reset_traffic()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                moved.append({k: dict(v) for k, v in coll.traffic.items()})
+                bad += replicas_disagree(st._replace(ef=None), specs, mesh)
+        finally:
+            coll.compressed_psum = orig
+        check(not bad, f"dist: {sync} replicas differ after a step: {bad}")
+        check(all(math.isfinite(x) for x in losses),
+              f"dist: {sync} losses {losses}")
+        res[sync] = {"losses": losses, "step_ms": step_ms,
+                     "collectives_per_step": moved[-1]}
+        if sync == "dense":
+            dense = st
+    res["int8_ef"]["worst_new_err_over_half_scale"] = worst_err[0]
+    check(worst_err[0] <= 1 + 2 ** -8, f"dist: |new_err| reached "
+          f"{worst_err[0]} x scale / 2")
+    # int8_ef's loss is the mean of the pods' means (the global mean
+    # differs under the uneven mask): at step 1, of the same weights as
+    # dense's; later, of weights the compressed gradients moved
+    res["dense"]["pod_mean_losses"] = pods
+    l8 = res["int8_ef"]["losses"]
+    first = abs(l8[0] - pods[0]) / abs(pods[0])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l8, pods))
+    res["int8_ef"].update(step1_rel_to_pod_mean=first,
+                          rel_to_dense_pod_mean=rel)
+    check(first <= 1e-5 and rel <= DIST_INT8_REL, f"dist: int8_ef losses "
+          f"{l8} vs the pods' means under dense {pods}")
+    del st
+    free(torch)
+    # the one-process dense run of the same global batches, on rank 0
+    if rank == 0:
+        one = fresh("dense")
+        step1 = make_train_step(model, opt)
+        ref, ref_ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one, m = step1(one, b)
+            ref.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+        lrel = max(abs(a - b) / abs(b) for a, b in
+                   zip(res["dense"]["losses"], ref))
+        check(lrel <= 1e-5, f"dist: dense losses {res['dense']['losses']} "
+              f"vs one process {ref}")
+        worst = {"params_max": 0.0, "params_past_tight": 0.0,
+                 "moments_over_max": 0.0}
+        for (n, a), (_, b) in zip(tree_flatten_with_names(dense),
+                                  tree_flatten_with_names(one)):
+            d = (a.double() - b.double()).abs()
+            if n.startswith("params/"):
+                past = float((d > DIST_TIGHT).double().mean())
+                worst["params_max"] = max(worst["params_max"],
+                                          float(d.max()))
+                worst["params_past_tight"] = max(
+                    worst["params_past_tight"], past)
+                check(float(d.max()) <= DIST_ADAM_SLACK and past <= 1e-3,
+                      f"dist: {n} off the one-process run by "
+                      f"{float(d.max()):.3g} ({past:.2%} past "
+                      f"{DIST_TIGHT})")
+            elif n.startswith("opt/"):
+                rel_m = float(d.max()) / max(float(b.abs().max()), 1e-30)
+                worst["moments_over_max"] = max(worst["moments_over_max"],
+                                                rel_m)
+                check(rel_m <= 1e-5, f"dist: {n} off by {rel_m:.3g} of "
+                      f"its max")
+        res["dense"].update(one_process_losses=ref,
+                            one_process_step_ms=ref_ms,
+                            loss_rel_to_one_process=lrel, **worst)
+        del one
+        free(torch)
+    dist.barrier()
+    return res, dense
+
+
+def dist_checkpoint(torch, dense, rank, tmp):
+    """(c): ZeRO-3 blocks on (data 2) saved; restored on (pod 2) and in
+    one process; a one-process save restored on (data 2)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import Mesh, shard_tree
+    from repro_torch.ft_runtime import restore, save
+    from repro_torch.train import state_specs
+    from repro_torch.utils import tree_flatten_with_names
+    model = train_model(torch, "float32")
+    data = Mesh((DIST_WORLD,), ("data",))
+    pod = Mesh((DIST_WORLD,), ("pod",))
+    specs_d = state_specs(model, data)
+    zero = shard_tree(dense, specs_d, data)
+
+    def equal(a, b, what):
+        for (n, x), (_, y) in zip(tree_flatten_with_names(a),
+                                  tree_flatten_with_names(b)):
+            check(x.shape == y.shape and torch.equal(x, y),
+                  f"dist: checkpoint {what}: {n} differs")
+
+    t0 = time.perf_counter()
+    save(tmp / "ckpt_data2", zero, step=DIST_STEPS, mesh=data,
+         shardings=specs_d)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    back, step, _ = restore(tmp / "ckpt_data2", dense, mesh=pod,
+                            shardings=state_specs(model, pod))
+    check(step == DIST_STEPS, f"dist: checkpoint step {step}")
+    equal(back, dense, "data 2 -> pod 2")
+    del back
+    if rank == 0:
+        one, _, _ = restore(tmp / "ckpt_data2", dense)
+        equal(one, dense, "data 2 -> one process")
+        save(tmp / "ckpt_one", one, step=DIST_STEPS)
+        del one
+    dist.barrier()
+    again, _, _ = restore(tmp / "ckpt_one", zero, mesh=data,
+                          shardings=specs_d)
+    equal(again, zero, "one process -> data 2")
+    leaves = sum(1 for _ in tree_flatten_with_names(dense))
+    del again, zero
+    free(torch)
+    return {"leaves": leaves, "bit_equal": ["data 2 -> pod 2",
+                                            "data 2 -> one process",
+                                            "one process -> data 2"],
+            "save_ms": save_ms}
+
+
+def dist_moe(torch, np, seed, rank):
+    """(b): one arctic MoE layer at published width, experts split over
+    the two ranks, against the one-device layer on rank 0."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models.moe import (_moe_inference_ep, capacity,
+                                        count_dropped, moe_apply)
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    e, d, f = m.num_experts, cfg.d_model, m.expert_d_ff
+    check((e, d, f, m.top_k) == (128, 7168, 4864, 2),
+          f"{MOE_ARCH} is not at full width")
+    half = e // DIST_WORLD
+
+    def gen(s):
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(s)
+        return g
+
+    def experts(lo, hi):
+        """Experts lo..hi-1, each drawn from its own seed, bf16."""
+        w = {"wg": torch.empty((hi - lo, d, f), dtype=torch.bfloat16,
+                               device=DEVICE),
+             "wu": torch.empty((hi - lo, d, f), dtype=torch.bfloat16,
+                               device=DEVICE),
+             "wd": torch.empty((hi - lo, f, d), dtype=torch.bfloat16,
+                               device=DEVICE)}
+        for i in range(hi - lo):
+            g = gen(seed * 1000 + lo + i)
+            for k, fan in (("wg", d), ("wu", d), ("wd", f)):
+                w[k][i].copy_(torch.randn(w[k].shape[1:], generator=g,
+                                          device=DEVICE) / math.sqrt(fan))
+        w["router"] = torch.randn((d, e), generator=gen(seed), device=DEVICE
+                                  ) / math.sqrt(d)
+        return w
+
+    x = torch.randn((1, MOE_TRAIN_TOKENS, d), generator=gen(seed + 1),
+                    device=DEVICE).to(torch.bfloat16)
+    xd = torch.randn((MOE_DECODE_TOKENS, 1, d), generator=gen(seed + 2),
+                     device=DEVICE).to(torch.bfloat16)
+    m_inf = dataclasses.replace(m, inference_ep=True)
+    mdl = Mesh((DIST_WORLD,), ("model",))
+    dat = Mesh((DIST_WORLD,), ("data",))
+    w = experts(rank * half, (rank + 1) * half)
+    res = {"expert_bytes_per_rank": tree_bytes(
+        {k: v for k, v in w.items() if k != "router"})}
+
+    def timed(fn):
+        coll.reset_traffic()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {
+            k: dict(v) for k, v in coll.traffic.items()}
+
+    timed(lambda: moe_apply(w, x, m, act=cfg.act, mesh=mdl))   # warm-up
+    (y_ep, aux_ep), ep_ms, ep_moved = timed(
+        lambda: moe_apply(w, x, m, act=cfg.act, mesh=mdl))
+    rows = MOE_DECODE_TOKENS // DIST_WORLD
+    xd_mine = xd[rank * rows:(rank + 1) * rows]
+    timed(lambda: _moe_inference_ep(w, xd_mine, m_inf, mesh=dat,
+                                    act=cfg.act))
+    (yd_mine, auxd), inf_ms, inf_moved = timed(
+        lambda: _moe_inference_ep(w, xd_mine, m_inf, mesh=dat, act=cfg.act))
+    yd = torch.cat(coll.all_gather(yd_mine, dat.group("data")))
+    peak = torch.cuda.max_memory_allocated()
+    del w
+    free(torch)
+    dist.barrier()                     # rank 1's experts are gone
+    if rank == 0:
+        full = experts(0, e)
+        (y1, aux1), one_ms, _ = timed(lambda: moe_apply(full, x, m,
+                                                        act=cfg.act))
+        (yd1, auxd1), one_d_ms, _ = timed(lambda: moe_apply(full, xd, m_inf,
+                                                            act=cfg.act))
+
+        def ulp_bound(got, ref, what):
+            ref32, got32 = ref.float(), got.float()
+            rms = ref32.square().mean().sqrt()
+            bound = 2 ** -7 * ref32.abs() + 2 ** -8 * rms
+            over = float(((got32 - ref32).abs() / bound).max())
+            check(over <= 1.0, f"dist: {what} y off the one-device layer "
+                  f"by {over:.3f} of the bound")
+            return over
+
+        x2, xd2 = x.reshape(-1, d), xd.reshape(-1, d)
+        drops = {"ep": count_dropped(x2, full["router"], m,
+                                     capacity(x2.shape[0], m)),
+                 "inference_ep": count_dropped(
+                     xd2, full["router"], m_inf, capacity(xd2.shape[0],
+                                                          m_inf))}
+        check(float(aux_ep) == float(aux1) and float(auxd) == float(auxd1),
+              f"dist: aux {float(aux_ep)}/{float(auxd)} vs one device "
+              f"{float(aux1)}/{float(auxd1)}")
+        res.update(
+            ep={"mesh": "model 2", "tokens": MOE_TRAIN_TOKENS, "ms": ep_ms,
+                "one_device_ms": one_ms, "collectives": ep_moved,
+                "y_over_ulp_bound": ulp_bound(y_ep, y1, "_moe_apply_ep"),
+                "aux": float(aux_ep), "dropped": drops["ep"],
+                "capacity": capacity(x2.shape[0], m)},
+            inference_ep={"mesh": "data 2", "tokens": MOE_DECODE_TOKENS,
+                          "ms": inf_ms, "one_device_ms": one_d_ms,
+                          "collectives": inf_moved,
+                          "y_over_ulp_bound": ulp_bound(
+                              yd.reshape(yd1.shape), yd1,
+                              "_moe_inference_ep"),
+                          "aux": float(auxd), "dropped": drops[
+                              "inference_ep"],
+                          "capacity": capacity(xd2.shape[0], m_inf)},
+            one_device_peak_bytes=torch.cuda.max_memory_allocated())
+        del full
+        free(torch)
+    res["rank_peak_bytes"] = peak
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="comma list of phases to run after device and "
-                         "build (vlm, train), for bring-up; prints no "
-                         "result line")
+                         "build (dist, vlm, train), for bring-up; prints "
+                         "no result line")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # a rank of phase dist
+    ap.add_argument("--dist-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -3460,13 +3945,20 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    phase_device(torch)
+    if args.dist_rank is not None:
+        return dist_rank(args)
+    card = phase_device(torch)
     phase_build()
     if args.only:
-        only = {"vlm": phase_vlm, "train": phase_train}
+        only = {"dist": lambda torch, np, seed: phase_dist(torch, np, seed,
+                                                           card),
+                "vlm": phase_vlm, "train": phase_train}
         for name in args.only.split(","):
             only[name](torch, np, args.seed)
         return 0
+    # first, while this process holds next to nothing on the card: rank 0
+    # of phase (b) holds 26.8 GB of experts
+    phase_dist(torch, np, args.seed, card)
     max_err = phase_kernel(torch)
     serve = phase_serve(torch, np, args.seed)
     entry = phase_numbers(torch, serve, max_err)

@@ -4,9 +4,8 @@ A real deployment feeds this from the cluster manager's health service; the
 planning logic is pure and tested here. Policy: keep the ``model`` axis at
 its configured size (TP degree is baked into weight shards), shrink the
 ``data``(/``pod``) axes to the largest supported DP degree, and resume from
-the latest checkpoint (the stateless data pipeline needs only the step
-counter). The planning is the JAX package's; building the mesh waits for
-the port's distributed slice.
+the latest checkpoint (restore() reshards onto the new mesh; the stateless
+data pipeline needs only the step counter).
 """
 from __future__ import annotations
 
@@ -46,9 +45,11 @@ def plan_mesh(n_healthy: int, *, model_parallel: int = 16,
                     n_healthy - dp * model_parallel, dp * model_parallel)
 
 
-def build_mesh(plan: MeshPlan, devices=None):
-    """A device mesh for ``plan``: waits for the port's distributed slice
-    (ROADMAP, Queue A, item 4)."""
-    raise NotImplementedError(
-        "build_mesh waits for the distributed slice of repro_torch "
-        "(ROADMAP, Queue A, item 4)")
+def build_mesh(plan: MeshPlan, ranks=None):
+    """A :class:`~repro_torch.distributed.mesh.Mesh` of ``plan.shape`` and
+    ``plan.axes`` over the first ``plan.world`` of ``ranks`` (the world's
+    ranks by default); every rank of the world calls it."""
+    from repro_torch.distributed.mesh import Mesh
+    ranks = list(ranks) if ranks is not None else None
+    return Mesh(plan.shape, plan.axes,
+                ranks=None if ranks is None else ranks[: plan.world])

@@ -10,6 +10,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import dp_axes
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.attention import init_cache as init_attn_cache
@@ -50,7 +52,7 @@ class Model:
     def init(self, generator: torch.Generator) -> Any:
         return init_params(generator, self.cfg, self.device)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, mesh=None):
         """The training loss of ``batch`` (``tokens`` and ``targets`` (B, S)
         int, optional ``loss_mask`` (B, S), and ``frontend`` or
         ``enc_tokens`` as :meth:`logits` takes them): mean cross-entropy
@@ -58,36 +60,55 @@ class Model:
         log-partition (z-loss), plus ``router_aux_weight`` x the MoE aux
         loss. Returns (total f32 scalar, metrics) with the JAX package's
         keys: ``loss``, ``ce``, ``z_loss``, ``aux``, and ``ft_detected`` /
-        ``ft_corrected`` (5,) summed over the batch. Differentiable."""
+        ``ft_corrected`` (5,) summed over the batch. Differentiable.
+
+        On a ``mesh`` the batch is the calling rank's block over the
+        data-parallel axes (see :func:`forward`) and the means are the
+        global batch's, as GSPMD computes them: the masked sums and the
+        count are summed over the data-parallel ranks before they are
+        divided (a mean of the ranks' means is not that under an uneven
+        mask), and so are the fault counts. Each rank's gradients are then
+        its share of the global loss's; the sum of the shares over the
+        data-parallel ranks is the gradient."""
         logits, rep, aux, _ = forward(
             params, self.cfg, batch["tokens"], mode="train",
             frontend=batch.get("frontend"),
-            enc_tokens=batch.get("enc_tokens"), return_aux=True)
+            enc_tokens=batch.get("enc_tokens"), return_aux=True, mesh=mesh)
         targets = batch["targets"].long()
         logz = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, targets[..., None])[..., 0] - logz
         mask = batch.get("loss_mask")
         mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
-        denom = mask.sum().clamp(min=1.0)
-        ce = -(ll * mask).sum() / denom
-        zl = Z_LOSS * (logz.square() * mask).sum() / denom
+        sums = torch.stack([-(ll * mask).sum(), (logz.square() * mask).sum()])
+        count = mask.sum()
+        detected = rep.detected.sum(dim=0)
+        corrected = rep.corrected.sum(dim=0)
+        dp = dp_axes(mesh) if mesh is not None else ()
+        if mesh is not None and mesh.size(dp) > 1:
+            grp = mesh.group(dp)
+            sums = coll.psum(sums, grp)
+            count = coll.all_reduce(count, grp)
+            detected = coll.all_reduce(detected, grp)
+            corrected = coll.all_reduce(corrected, grp)
+        denom = count.clamp(min=1.0)
+        ce = sums[0] / denom
+        zl = Z_LOSS * sums[1] / denom
         total = ce + zl
         if self.cfg.moe is not None:
             total = total + self.cfg.moe.router_aux_weight * aux
         metrics = {"loss": total, "ce": ce, "z_loss": zl, "aux": aux,
-                   "ft_detected": rep.detected.sum(dim=0),
-                   "ft_corrected": rep.corrected.sum(dim=0)}
+                   "ft_detected": detected, "ft_corrected": corrected}
         return total, metrics
 
-    def logits(self, params, batch):
+    def logits(self, params, batch, *, mesh=None):
         """Full-sequence forward of ``batch["tokens"]`` (B, S), causal
         except in the ``encoder`` family; ``batch["frontend"]`` or
         ``batch["enc_tokens"]`` feed the encoder of the encoder-decoder
         families or the VLM's cross-attention. Returns (logits f32 (B, S,
-        V), FTReport)."""
+        V), FTReport); on a ``mesh``, those of the rank's batch block."""
         out, rep, _ = forward(params, self.cfg, batch["tokens"], mode="train",
                               frontend=batch.get("frontend"),
-                              enc_tokens=batch.get("enc_tokens"))
+                              enc_tokens=batch.get("enc_tokens"), mesh=mesh)
         return out, rep
 
     def init_cache(self, batch: int, *, cache_len: Optional[int] = None):
@@ -131,7 +152,8 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, cache, *,
-                frontend=None, enc_tokens=None, lengths=None, fault=None):
+                frontend=None, enc_tokens=None, lengths=None, fault=None,
+                mesh=None):
         """Process the prompt (B, S) into a fresh ring ``cache`` (and, for
         the encoder-decoder families, encode ``frontend`` or
         ``enc_tokens`` into the cache's cross memory; for the VLM, project
@@ -139,25 +161,27 @@ class Model:
         token ``lengths - 1`` (None = the last column), FTReport, cache).
         Causality keeps the gathered logits free of the padding; the serve
         engine rewinds each slot's position to its true length. ``fault``:
-        a FaultSpec."""
+        a FaultSpec. ``mesh``: as :func:`forward` takes it."""
         logits, rep, new_cache = forward(params, self.cfg, tokens,
                                          cache=cache, mode="prefill",
                                          fault=fault, frontend=frontend,
-                                         enc_tokens=enc_tokens)
+                                         enc_tokens=enc_tokens, mesh=mesh)
         return _last_logits(logits, lengths), rep, new_cache
 
     @torch.no_grad()
     def decode_step(self, params, token: torch.Tensor, cache, *,
-                    fault=None, independent_rows: bool = False):
+                    fault=None, independent_rows: bool = False, mesh=None):
         """token: (B, 1), each row at its own cache position. Returns
         (logits (B, V), FTReport with (B, 5) counts, cache). ``fault``: a
         FaultSpec, per row as (B, n_faults) entries. ``independent_rows``:
         each row is its own MoE routing group, as a batch-1 call per row
-        (the serve slots of the JAX package's vmapped decode) would be."""
+        (the serve slots of the JAX package's vmapped decode) would be.
+        ``mesh``: as :func:`forward` takes it (the MoE's decode layout)."""
         logits, rep, new_cache = forward(params, self.cfg, token,
                                          cache=cache, mode="decode",
                                          fault=fault,
-                                         independent_rows=independent_rows)
+                                         independent_rows=independent_rows,
+                                         mesh=mesh)
         return logits[:, -1, :], rep, new_cache
 
     @torch.no_grad()

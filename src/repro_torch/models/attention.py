@@ -356,6 +356,10 @@ def attn_apply(params, x: torch.Tensor, *, acfg: AttnCfg, ft: FTCfg,
             "step; prefill has no paged cache")
     hd, h, hkv = acfg.head_dim, acfg.num_heads, acfg.num_kv_heads
     ff = ft.ff_abft
+    # the JAX package's _tp_heads / _tp_kv place the heads over 'model'
+    # under a mesh: placements only, the values are one device's; on a
+    # mesh here the rank computes every head of its batch block with
+    # gathered weights
     q = _split_heads(matmul(x, params["wq"], ff_abft=ff), h, hd)
     k = _split_heads(matmul(x, params["wk"], ff_abft=ff), hkv, hd)
     v = _split_heads(matmul(x, params["wv"], ff_abft=ff), hkv, hd)

@@ -200,10 +200,11 @@ def _stacked_init(gen: torch.Generator, cfg: ModelConfig, device, n: int,
 def init_params(gen: torch.Generator, cfg: ModelConfig, device
                 ) -> Dict[str, Any]:
     """Random parameters drawn from ``gen`` (on the generator's device),
-    placed on ``device``."""
+    placed on ``device``; on the meta device, their shapes and dtypes
+    only (nothing is drawn)."""
     _check_family(cfg)
     dtype = getattr(torch, cfg.dtype)
-    gd = gen.device
+    gd = device if torch.device(device).type == "meta" else gen.device
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, gd),
         "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, gd),
@@ -247,7 +248,7 @@ class BlockOut(NamedTuple):
 def _block_apply(params, x, *, cfg: ModelConfig, is_global: bool,
                  theta: float, cache, mode: str, positions, fault,
                  causal: bool = True, memory=None, state=None,
-                 independent_rows: bool = False) -> BlockOut:
+                 independent_rows: bool = False, mesh=None) -> BlockOut:
     """One pre-norm block of the config's family.
 
     ``ssm``: the rwkv6 time mix then channel mix, from ``state`` (a fresh
@@ -259,7 +260,7 @@ def _block_apply(params, x, *, cfg: ModelConfig, is_global: bool,
     the shared expert or dense residual MLP (``ff_abft`` covers those two
     and not the experts, as in the JAX package). ``independent_rows``
     routes each row of ``x`` on its own (see :mod:`~repro_torch.models.
-    moe`)."""
+    moe`); ``mesh`` takes the MoE to its paths on a mesh."""
     kind = cfg.family
     b = x.shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -303,7 +304,8 @@ def _block_apply(params, x, *, cfg: ModelConfig, is_global: bool,
     ff = cfg.ft.ff_abft
     if kind == "moe":
         y, aux = moe_apply(params["moe"], h2, cfg.moe, act=cfg.act,
-                           independent_rows=independent_rows)
+                           independent_rows=independent_rows, mesh=mesh,
+                           mode=mode)
         for name in ("shared", "dense_res"):
             if name in params:
                 y = y + mlp_apply(params[name], h2, act=cfg.act, glu=cfg.glu,
@@ -413,7 +415,8 @@ def _vlm_superblock(sp, x, *, cfg: ModelConfig, cache, mode, positions,
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
             mode: str = "train", fault=None, frontend=None, enc_tokens=None,
-            independent_rows: bool = False, return_aux: bool = False):
+            independent_rows: bool = False, return_aux: bool = False,
+            mesh=None):
     """The model forward. ``tokens`` (B, S) are the decoder's (or, for the
     ``encoder`` family, the encoder's) tokens; ``frontend`` (B, M,
     d_model) frames (``audio``), patch embeddings (``vlm``) or
@@ -438,6 +441,15 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     :class:`VLMCache`. ``independent_rows`` routes the MoE of each row on
     its own, as a batch-1 call per row would.
 
+    On a ``mesh`` (:class:`~repro_torch.distributed.mesh.Mesh`) the
+    tensors are the calling rank's block of the batch over the
+    data-parallel axes and the parameters are whole, but for the MoE
+    experts, which hold the rank's block of
+    :func:`~repro_torch.models.moe.expert_spec`; only the MoE layer talks
+    to other ranks. The JAX package's activation placements under a mesh
+    (``shard_act``, ``seq_parallel``, the logits spec) change no value:
+    they are this batch split and the gathered weights.
+
     Returns (logits f32 (B, S, V), FTReport with (B, 5) per-row counts, new
     cache or None); with ``return_aux`` (logits, FTReport, the MoE aux loss
     summed over layers (f32 scalar, 0 outside ``moe``), new cache), the
@@ -453,6 +465,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     b, s = tokens.shape
     dev = tokens.device
     causal = fam != "encoder"
+    # shard_act(x, mesh) in the JAX package: a placement (the batch split)
     x = embed_apply(params["embed"], tokens)
     steps = torch.arange(s, device=dev)
     if mode == "decode" and fam != "ssm":
@@ -490,6 +503,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
             rep = rep.merge(rep_i)
             cross_kv.append(kv)
     else:
+        # each block's shard_act / seq_parallel spec: placements
         for i in range(cfg.num_layers):
             layer_cache, state = _layer_cache(cache, i)
             out = _remat_call(
@@ -498,7 +512,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
                 theta=float(flags["theta"][i]), cache=layer_cache,
                 mode=mode, positions=positions, fault=fault, causal=causal,
                 memory=memory, state=state,
-                independent_rows=independent_rows)
+                independent_rows=independent_rows, mesh=mesh)
             x = out.x
             rep = rep.merge(out.rep)
             aux = aux + out.aux
@@ -509,7 +523,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
             states.append(out.state)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     table = params.get("lm_head", params["embed"])["table"]
-    logits = unembed(x, table)
+    logits = unembed(x, table)      # the logits spec: a placement
     new_pos = (positions[:, -1] + 1).to(torch.int32)
     cross = {}
     if mode == "prefill" and cross_kv:

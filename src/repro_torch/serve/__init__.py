@@ -9,4 +9,5 @@ from repro_torch.serve.sampling import (SamplingParams, sample_tokens,
                                         speculative_accept, target_probs)
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler, Request,
                                          RequestState)
-from repro_torch.serve.step import greedy_generate
+from repro_torch.serve.step import (greedy_generate, make_decode_step,
+                                     make_prefill_step)

@@ -1,5 +1,6 @@
-"""The per-request greedy decoder that is the ring serve engine's
-exactness oracle."""
+"""Serving step factories (prefill and decode, with the mesh threaded as
+the JAX package threads it) and the per-request greedy decoder that is the
+ring serve engine's exactness oracle."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,9 +10,22 @@ import torch
 from repro_torch.models.api import Model
 
 
+def make_prefill_step(model: Model, *, mesh=None):
+    def prefill(params, tokens, cache, frontend=None, enc_tokens=None):
+        return model.prefill(params, tokens, cache, frontend=frontend,
+                             enc_tokens=enc_tokens, mesh=mesh)
+    return prefill
+
+
+def make_decode_step(model: Model, *, mesh=None):
+    def decode(params, token, cache):
+        return model.decode_step(params, token, cache, mesh=mesh)
+    return decode
+
+
 @torch.no_grad()
 def greedy_generate(model: Model, params, tokens: torch.Tensor, *,
-                    steps: int, cache_len: Optional[int] = None,
+                    steps: int, cache_len: Optional[int] = None, mesh=None,
                     **prefill_kw):
     """Per-token Python-loop greedy decoder: prefill ``tokens`` (B, S),
     then ``steps`` decode steps, each taking the argmax. ``prefill_kw`` go
@@ -24,12 +38,14 @@ def greedy_generate(model: Model, params, tokens: torch.Tensor, *,
     b = tokens.shape[0]
     cache = model.init_cache(b, cache_len=cache_len or
                              (tokens.shape[1] + steps + 1))
-    logits, rep, cache = model.prefill(params, tokens, cache, **prefill_kw)
+    logits, rep, cache = model.prefill(params, tokens, cache, mesh=mesh,
+                                       **prefill_kw)
     out = []
     tok = torch.argmax(logits, dim=-1)[:, None]
     for _ in range(steps):
         out.append(tok)
-        logits, rep_i, cache = model.decode_step(params, tok, cache)
+        logits, rep_i, cache = model.decode_step(params, tok, cache,
+                                                 mesh=mesh)
         rep = rep.merge(rep_i)
         tok = torch.argmax(logits, dim=-1)[:, None]
     return torch.cat(out, dim=1), rep

@@ -1,2 +1,2 @@
 from repro_torch.train.state import TrainState
-from repro_torch.train.step import init_state, make_train_step
+from repro_torch.train.step import init_state, make_train_step, state_specs

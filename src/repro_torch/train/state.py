@@ -14,6 +14,6 @@ class TrainState(NamedTuple):
     params: Any
     opt: AdamWState
     step: torch.Tensor      # int32 scalar
-    # error-feedback residuals of the compressed cross-pod gradient sync;
-    # None (no leaf) under pod_sync="dense", the only sync ported
+    # error-feedback residuals of the compressed cross-pod gradient sync
+    # (pod_sync="int8_ef"); None (no leaf) under pod_sync="dense"
     ef: Any = None

@@ -47,4 +47,8 @@ def test_every_module_imports_without_jax():
     assert {"repro_torch.core.abft_gemm", "repro_torch.core.decoupled",
             "repro_torch.models.transformer", "repro_torch.train.step",
             "repro_torch.optim.adamw", "repro_torch.ft_runtime.checkpoint",
-            "repro_torch.data.pipeline"} <= names
+            "repro_torch.data.pipeline", "repro_torch.distributed.context",
+            "repro_torch.distributed.mesh",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.mesh"} <= names

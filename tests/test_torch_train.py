@@ -12,12 +12,17 @@ size (f32).
 * ``warmup_cosine``, ``plan_mesh`` and the data batches equal the
   reference's; checkpoints round-trip (bf16 leaves, async), carry a train
   state across the packages both ways, and keep the reference's errors.
-* End to end: train, checkpoint, crash, resume, serve; the train CLI.
+* ``pod_sync="int8_ef"`` draws the reference's bf16 zero residuals and,
+  without a pod axis, steps as ``dense``; the distributed steps are held in
+  ``tests/test_torch_distributed.py``.
+* End to end: train, checkpoint, crash, resume, serve; the train CLI, and
+  its ``--mesh pod`` raising RuntimeError in one process (too few ranks).
 * ``efta_pallas`` under autograd raises in both packages; the serve entry
   points build no autograd graph.
 """
 import dataclasses
 import json
+import socket
 import sys
 
 import numpy as np
@@ -44,7 +49,7 @@ from repro.utils.tree import tree_flatten_with_names as jnames  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import as_tensors, make_pipeline  # noqa: E402
 from repro_torch.ft_runtime import (  # noqa: E402
-    AsyncCheckpointer, build_mesh, latest_step, plan_mesh, restore, save)
+    AsyncCheckpointer, latest_step, plan_mesh, restore, save)
 from repro_torch.models import (build_model,  # noqa: E402
                                 from_reference_params,
                                 from_reference_train_state)
@@ -226,8 +231,6 @@ def test_warmup_cosine_and_plan_mesh_match_reference():
                 assert plan_mesh(n, model_parallel=mp, prefer_pods=pods) == \
                     _as_port_plan(jplan_mesh(n, model_parallel=mp,
                                              prefer_pods=pods))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        build_mesh(plan_mesh(16))
 
 
 def _as_port_plan(p):
@@ -444,15 +447,34 @@ def test_serving_builds_no_graph(weights):
     assert loss.requires_grad
 
 
-def test_pod_sync_int8_ef_waits_for_the_distributed_slice():
-    model, opt, _ = _state()
-    with pytest.raises(NotImplementedError, match="compressed_psum"):
-        make_train_step(model, opt, pod_sync="int8_ef")
-    with pytest.raises(NotImplementedError, match="compressed_psum"):
-        init_state(model, opt, torch.Generator(), pod_sync="int8_ef")
+def test_pod_sync_int8_ef_without_pods_is_dense():
+    """``int8_ef`` draws the reference's bf16 zero residuals and, without a
+    pod axis of size above 1, steps as ``dense`` does (the reference's
+    condition); an unknown sync raises."""
+    model, opt, st = _state()
+    ef_state = init_state(model, opt, torch.Generator().manual_seed(0),
+                          pod_sync="int8_ef")
+    jst = jinit_state(jbuild(jget("gpt2-smoke")), JAdamW(),
+                      jax.random.PRNGKey(0), pod_sync="int8_ef")
+    jef = dict(jnames(jst.ef))
+    for name, e in tree_flatten_with_names(ef_state.ef):
+        assert e.dtype == torch.bfloat16 and not e.any()
+        assert tuple(e.shape) == jef[name].shape
+        assert jef[name].dtype == jnp.bfloat16
+    batch = as_tensors(make_pipeline(get_config("gpt2-smoke"),
+                                     global_batch=2, seq_len=16,
+                                     seed=0).batch(0), "cpu")
+    dense, _ = make_train_step(model, opt)(st, batch)
+    ef, _ = make_train_step(model, opt, pod_sync="int8_ef")(ef_state, batch)
+    for (n, a), (_, b) in zip(tree_flatten_with_names(dense._replace(ef=None)),
+                              tree_flatten_with_names(ef._replace(ef=None))):
+        assert torch.equal(a, b), n
+    assert ef.ef is ef_state.ef
+    with pytest.raises(ValueError, match="pod_sync"):
+        make_train_step(model, opt, pod_sync="int4")
 
 
-def test_cli_train(tmp_path, caplog):
+def test_cli_train(tmp_path, caplog, monkeypatch):
     from repro_torch.launch import train
     ck = str(tmp_path / "ck")
     st, metrics = train.main(["--arch", "gpt2-smoke", "--device", "cpu",
@@ -464,8 +486,16 @@ def test_cli_train(tmp_path, caplog):
                         "--steps", "4", "--batch", "4", "--seq", "16",
                         "--ckpt-dir", ck, "--ckpt-every", "2", "--resume"])
     assert int(st.step) == 4 and latest_step(ck).name == "step_4"
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # --mesh pod in one process: the group forms, the 16 x 16 mesh does not
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="needs 256 ranks, have 1"):
         train.main(["--device", "cpu", "--mesh", "pod"])
+    assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         # the entry point runs on the card unless asked for the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
