@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only dist,vlm,train]
+    python3 chip_smoke.py [--seed N] [--only dist,vlm,train,dryrun,examples]
 
 Run from the root of a checkout. Phases, each printing one JSON line:
 
@@ -179,6 +179,24 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              peak memory, a profiled step's busy share and top kernels,
              plain EFTA's share of the step.
 
+dryrun   — the dry run (``repro_torch.launch.dryrun``) against the card:
+             (a) a gpt2 train step at phase 23's config and (b) a gpt2
+             ``Model.prefill`` under ``efta_pallas`` (B 8 x 512), each
+             traced on meta (one rank) and counted on the card under the
+             same ``opcount``: FLOPs, ops by class and by aten op, kernel
+             launches (12 B2 in (b)) and argument bytes equal; the
+             predicted peak against ``max_memory_allocated`` plus the
+             arguments (reported, within 10% expected); (c) the three
+             production cells of ``experiments/hillclimb.py`` (16x16,
+             rank 0 of 256 fake ranks) through the dry run's CLI, side by
+             side: dominant term, the three terms, peak, ``fits_80gb``.
+examples — the five ``examples_torch/`` scripts as subprocesses on the
+             card, side by side: each exits 0; ``paged_prefix_serving``
+             launches B1. That example then runs once more in this
+             process with every B1 call held against the plain version
+             on the same inputs (head_dim 16, block 16: a regime no other
+             phase reaches): outputs within the bound, counts equal.
+
 dist     — distributed training on two gloo ranks that share the card
              (subprocesses of this script on cuda:0; nccl refuses two
              ranks on one device, so its path is written but not run):
@@ -201,7 +219,8 @@ numbers in the regimes of phases 16-20 and 22 and B1's in those of phase
 19 under ``regimes``.
 
 The phases run in the order 1, 2, dist (while this process holds next
-to nothing on the card), 3-5, 7-9, 14-19, 22, 20, 23, 6, 10, 21, 11-13:
+to nothing on the card), 3-5, 7-9, 14-19, 22, 20, 23, dryrun, examples,
+6, 10, 21, 11-13:
 after profiled runs of a few hundred thousand launches the profiler
 drops kernel records from later windows (seen on the card), so the
 whole-run profiles (6, 10) and the profiled windows of 11-13 and 20-23
@@ -235,8 +254,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# the card's data-sheet rates, as the dry run's roofline takes them
+from repro_torch.launch.dryrun import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.dryrun import (  # noqa: E402
+    PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS)
 DEVICE = "cuda"
 ARCH = "gpt2"                    # the paper's Table 3 model, full width
 ORACLE_REQUESTS = 4              # ring requests replayed on greedy_generate
@@ -1292,17 +1313,11 @@ def regime_name(key):
 
 
 def b2_regime_work(cap):
-    """Bytes one launch must move (q, k, v read once, out written once)
-    and the operations its attention needs: QK^T and PV over the visible
-    (row, key) pairs (every pair non-causal, the lower triangle causal), 2
-    flops per multiply-add."""
-    q, k = cap["q"], cap["k"]
-    B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    causal = cap["kw"].get("causal")
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
-    return nbytes, B * H * pairs * 4 * D
+    """Bytes and operations of a captured launch: the package's
+    ``efta_attention_work``, which the dry run counts too."""
+    from repro_torch.kernels.efta_attention import efta_attention_work
+    return efta_attention_work(cap["q"], cap["k"],
+                               causal=bool(cap["kw"].get("causal")))
 
 
 def b2_regime_numbers(torch, cap, p_rounding=False):
@@ -3461,6 +3476,264 @@ def phase_train(torch, np, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase dryrun: the dry run's predictions against the card's counts
+# ---------------------------------------------------------------------------
+# experiments/hillclimb.py's three cells, on the 16x16 production mesh
+DRYRUN_BASELINES = (("kimi-k2-1t-a32b", "decode_32k"),
+                    ("arctic-480b", "train_4k"),
+                    ("deepseek-coder-33b", "prefill_32k"))
+DRYRUN_PEAK_SLACK = 0.10   # predicted peak within 10% of the card's
+
+
+def side_by_side(cmds, timeout=600):
+    """Run the commands (argument lists) as subprocesses at once from the
+    checkout's root with ``PYTHONPATH=src``; returns (exit code, stdout,
+    stderr) of each, and kills any still running if one wait fails."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              cwd=str(ROOT), env=env) for c in cmds]
+    try:
+        done = []
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            done.append((p.returncode, out, err))
+        return done
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dryrun_pair(torch, cfg, shape, seed, what):
+    """One call predicted by the dry run on meta (one rank, no mesh) and
+    counted on the card under the same ``opcount``: FLOPs, ops by class
+    and by aten op, and launches must be equal; the predicted peak is
+    reported against ``max_memory_allocated`` over the call plus the
+    call's arguments. Returns (the line's numbers, the card's outputs)."""
+    from repro_torch.launch import dryrun
+    free(torch)
+    pred, _, pred_s = dryrun.trace_call(dryrun.input_specs(cfg, shape, None),
+                                        None)
+    spec = dryrun.input_specs(cfg, shape, None, device=DEVICE, seed=seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, out, _ = dryrun.trace_call(spec, None)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    temp = torch.cuda.max_memory_allocated() - base
+    dev = next(iter(got.argument_bytes))
+    diff = {k: (pred.aten.get(k), got.aten.get(k))
+            for k in set(pred.aten) | set(got.aten)
+            if pred.aten.get(k) != got.aten.get(k)}
+    check(pred.flops == got.flops, f"dryrun {what}: predicted FLOPs "
+          f"{pred.flops} vs the card's {got.flops}")
+    check(pred.count_ops() == got.count_ops() and not diff,
+          f"dryrun {what}: ops {pred.count_ops()} vs {got.count_ops()}; "
+          f"aten ops that differ (meta, card): {diff}")
+    check(pred.launches == got.launches, f"dryrun {what}: launches "
+          f"{pred.launches} vs {got.launches}")
+    check(pred.argument_bytes["meta"] == got.argument_bytes[dev],
+          f"dryrun {what}: argument bytes {pred.argument_bytes} vs "
+          f"{got.argument_bytes}")
+    peak_pred = pred.peak_bytes["meta"]
+    peak_card = got.argument_bytes[dev] + temp
+    line = {"flops": got.flops, "ops": got.count_ops(),
+            "launches": got.launches, "bytes_pred": pred.bytes,
+            "bytes_card": got.bytes,
+            "argument_bytes": got.argument_bytes[dev],
+            "peak_pred": peak_pred, "peak_card": peak_card,
+            "peak_tracked_card": got.peak_bytes[dev],
+            "peak_ratio": peak_pred / peak_card,
+            "peak_within_10pct": abs(peak_pred / peak_card - 1)
+            <= DRYRUN_PEAK_SLACK,
+            "meta_s": pred_s, "card_s": card_s}
+    return line, out
+
+
+def phase_dryrun(torch, np, seed):
+    """The dry run (``repro_torch.launch.dryrun``) against the card:
+
+    (a) gpt2 training, phase 23's config (full width and depth, bf16,
+        remat full, B 8 x 1,024): the one-rank prediction on meta of
+        FLOPs, ops and peak bytes against the same step counted on the
+        card (``opcount`` around the real step, ``max_memory_allocated``);
+    (b) gpt2 ``Model.prefill`` under ``efta_pallas``, B 8 x 512: the
+        same, with 12 B2 launches counted alike (the meta branch on meta,
+        the kernel on the card, whose own counter moves by 12);
+    (c) the three production cells of ``experiments/hillclimb.py`` on
+        the 16x16 mesh through the dry run's CLI (a fake process group of
+        256 ranks, rank 0's numbers; three processes side by side):
+        ``dominant``, the three roofline terms, the peak a card and
+        ``fits_80gb``.
+    """
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.kernels.efta_attention import efta_attention
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16")
+    check(cfg.num_layers == 12 and cfg.d_model == 768 and
+          cfg.remat == "full", f"dryrun: {TRAIN_ARCH} is not at full width")
+    res = {}
+    train, out = dryrun_pair(
+        torch, cfg, ShapeCfg("gpt2_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        seed, "train")
+    loss = float(out[1]["loss"])
+    check(math.isfinite(loss), f"dryrun train: loss {loss}")
+    res["train"] = dict(train, loss=loss)
+    del out
+    pcfg = dataclasses.replace(cfg, ft=dataclasses.replace(
+        cfg.ft, attn_impl="efta_pallas"))
+    n0 = efta_attention.launches
+    prefill, out = dryrun_pair(
+        torch, pcfg, ShapeCfg("gpt2_prefill", 512, 8, "prefill"), seed,
+        "prefill")
+    n_b2 = efta_attention.launches - n0
+    calls = prefill["launches"].get("efta_attention", {}).get("calls")
+    check(n_b2 == calls == cfg.num_layers, f"dryrun prefill: B2 launched "
+          f"{n_b2} times, counted {calls}, for {cfg.num_layers} layers")
+    logits = out[0]
+    check(tuple(logits.shape) == (8, cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()),
+          f"dryrun prefill: logits {tuple(logits.shape)} not finite")
+    check(int(out[1].detected.sum()) == 0, "dryrun prefill: detections")
+    res["prefill"] = dict(prefill, b2_launches=n_b2)
+    del out, logits
+    free(torch)
+    # the CLI, one process a cell, side by side (each opens its own fake
+    # process group; the host's cores trace them)
+    out_dir = ROOT / "build" / "dryrun_chip"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runs = side_by_side([[sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", arch, "--shape", shape, "--out",
+                          str(out_dir)] for arch, shape in DRYRUN_BASELINES])
+    cells = {}
+    for (arch, shape), (rc, _, err) in zip(DRYRUN_BASELINES, runs):
+        check(rc == 0, f"dryrun {arch} x {shape}: exit {rc}: "
+              f"{err[-2000:]}")
+        r = json.loads((out_dir / f"{arch}__{shape}__16x16.json")
+                       .read_text())
+        check(r["flops_per_device"] > 0, f"dryrun {arch}: no FLOPs")
+        cells[f"{arch} x {shape} x 16x16"] = {
+            "dominant": r["dominant"], "roofline": r["roofline"],
+            "peak_bytes": r["memory"]["peak_bytes"],
+            "fits_80gb": r["memory"]["fits_80gb"],
+            "flops_per_device": r["flops_per_device"],
+            "collective_total_per_device": r["collective_total_per_device"],
+            "trace_s": r["trace_s"]}
+    res["hillclimb_baselines"] = cells
+    emit({"phase": "dryrun", "ok": True,
+          "phase_s": time.perf_counter() - t_phase, **res})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase examples: the port's five examples on the card
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "fault_injection_campaign", "serve_fault_tolerant",
+            "paged_prefix_serving", "train_with_restart")
+
+
+def _snapshot(x):
+    """A copy of a kernel argument: tensors cloned, (named) tuples of
+    them copied through, anything else as it is."""
+    import torch
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        parts = [_snapshot(y) for y in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def held_paged_example(torch, device=DEVICE):
+    """``examples_torch/paged_prefix_serving.py`` run in this process on
+    ``device`` with every B1 call it makes held against the plain version
+    on the same inputs: the arguments are copied at the call (the engine
+    writes the pool again later), and after the run each call's output
+    must lie within ``out_bound`` of the plain version's, with equal
+    detection vectors and bad planes (``compare``). This holds the kernel
+    at the example's own regime (gpt2-smoke: head_dim 16, block 16, 2
+    slots, its chunk widths, the resident flip and its retry), which no
+    other phase reaches. Returns (calls held, the example's numbers,
+    largest |kernel - plain|)."""
+    import importlib.util
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.efta_paged import efta_paged_attention_torch
+    spec = importlib.util.spec_from_file_location(
+        "paged_prefix_serving",
+        ROOT / "examples_torch" / "paged_prefix_serving.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    wrapper = attn_mod.efta_paged_attention
+    calls = []
+
+    def held(*args, **kw):
+        snap = (_snapshot(args), {k: _snapshot(v) for k, v in kw.items()})
+        rep = wrapper(*args, **kw)
+        calls.append((snap, rep))
+        return rep
+
+    attn_mod.efta_paged_attention = held
+    try:
+        numbers = example.main(["--device", str(device)])
+    finally:
+        attn_mod.efta_paged_attention = wrapper
+    err = 0.0
+    for i, ((args, kw), rep) in enumerate(calls):
+        ref = efta_paged_attention_torch(*args, **kw)
+        err = max(err, compare(torch, rep, ref,
+                               f"examples: paged_prefix_serving B1 call {i} "
+                               f"(q {tuple(args[0].shape)})"))
+    return len(calls), numbers, err
+
+
+def phase_examples(torch):
+    """Each script of ``examples_torch/`` as a subprocess on the card at
+    its defaults, all five side by side: each exits 0 (a failed assertion
+    exits non-zero); ``paged_prefix_serving`` launches B1. Then
+    ``paged_prefix_serving`` once more in this process, every B1 launch
+    held against the plain version (``held_paged_example``): the same
+    launches as its subprocess, each within the bound, detections equal.
+    Each script's last line, and the wall time of all five."""
+    free(torch)
+    t0 = time.perf_counter()
+    # side by side: each holds a few MB of the card
+    runs = side_by_side([[sys.executable,
+                          str(ROOT / "examples_torch" / f"{name}.py")]
+                         for name in EXAMPLES], timeout=300)
+    wall = time.perf_counter() - t0
+    res = {"wall_s": wall}
+    for name, (rc, out, err) in zip(EXAMPLES, runs):
+        lines = out.strip().splitlines()
+        check(rc == 0, f"examples: {name} exited {rc}: {err[-3000:]}")
+        res[name] = {"last_line": lines[-1] if lines else ""}
+        if name == "paged_prefix_serving":
+            n = int(next(x for x in lines if x.startswith(
+                "kernel B1 launches:")).split(":")[1])
+            check(n > 0, "examples: paged_prefix_serving launched no B1")
+            res[name]["b1_launches"] = n
+    t0 = time.perf_counter()
+    n_held, numbers, max_err = held_paged_example(torch)
+    n = res["paged_prefix_serving"]["b1_launches"]
+    check(n_held == numbers["b1_launches"] == n,
+          f"examples: paged_prefix_serving held {n_held} B1 calls, launched "
+          f"{numbers['b1_launches']} in this process and {n} in its own")
+    res["paged_prefix_serving"].update(
+        b1_held=n_held, b1_max_abs_err=max_err,
+        kv_detected_blocks=numbers["kv_detected_blocks"],
+        kv_repaired_blocks=numbers["kv_repaired_blocks"],
+        held_s=time.perf_counter() - t0)
+    emit({"phase": "examples", "ok": True, **res})
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase dist: distributed training on gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 DIST_WORLD = 2           # ranks, both on cuda:0 (nccl refuses that: gloo)
@@ -3933,8 +4206,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="comma list of phases to run after device and "
-                         "build (dist, vlm, train), for bring-up; prints "
-                         "no result line")
+                         "build (dist, vlm, train, dryrun, examples), for "
+                         "bring-up; prints no result line")
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase dist
     ap.add_argument("--dist-dir", default="", help=argparse.SUPPRESS)
@@ -3952,7 +4225,9 @@ def main(argv=None) -> int:
     if args.only:
         only = {"dist": lambda torch, np, seed: phase_dist(torch, np, seed,
                                                            card),
-                "vlm": phase_vlm, "train": phase_train}
+                "vlm": phase_vlm, "train": phase_train,
+                "dryrun": phase_dryrun,
+                "examples": lambda torch, np, seed: phase_examples(torch)}
         for name in args.only.split(","):
             only[name](torch, np, args.seed)
         return 0
@@ -3988,6 +4263,8 @@ def main(argv=None) -> int:
                                     f"{MOE_LAYERS} layers")
     entry["regimes"] = b1_regimes
     phase_train(torch, np, args.seed)
+    phase_dryrun(torch, np, args.seed)
+    phase_examples(torch)
     phase_profile(torch, np, serve, args.seed)
     phase_ring_profile(torch, np, ring)
     # after the whole-run profiles: its own profiled prefills count ~120k

@@ -199,16 +199,23 @@ def run_campaign(
     tol: float = 1e-3,
     cfg: Optional[EFTAConfig] = None,
     device="cuda",
+    qkv=None,
 ) -> CampaignResult:
     """Run a seeded SEU campaign against a fixed random attention problem
     (q, k, v standard normal from a ``torch.Generator`` seeded with
-    ``seed``), through plain-PyTorch EFTA."""
+    ``seed``, or the (B, H, S, D) arrays ``qkv``, whose shape then takes
+    the place of ``shape_bhsd``), through plain-PyTorch EFTA. The faults
+    are drawn from numpy's generator seeded with ``seed + 1``, as the JAX
+    package draws them."""
     from repro_torch.models.api import resolve_device
     dev = resolve_device(device)
-    b, h, s, d = shape_bhsd
-    g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn((b, h, s, d), generator=g).to(dev)
-               for _ in range(3))
+    if qkv is None:
+        g = torch.Generator().manual_seed(seed)
+        q, k, v = (torch.randn(shape_bhsd, generator=g).to(dev)
+                   for _ in range(3))
+    else:
+        q, k, v = (torch.tensor(np.asarray(a)).to(dev) for a in qkv)
+    b, h, s, d = q.shape
     ref = reference_attention(q, k, v).float()
     cfg = cfg or EFTAConfig(mode=mode, stride=stride, block_kv=block_kv)
     rng = np.random.default_rng(seed + 1)

@@ -200,8 +200,11 @@ def cache_shardings(cache, mesh, *, batch: int) -> Dict[str, tuple]:
 
 def local_block(t: torch.Tensor, spec: Optional[tuple], mesh
                 ) -> torch.Tensor:
-    """The calling rank's block of the full tensor ``t`` under ``spec``
-    (a copy, contiguous)."""
+    """The calling rank's block of the full tensor ``t`` under ``spec``:
+    a contiguous copy where the spec cuts ``t`` (a view would keep the
+    full tensor's storage alive), ``t`` itself (made contiguous) where it
+    does not."""
+    cut = False
     for dim, entry in enumerate(spec or ()):
         axes = _axes(entry)
         if not axes:
@@ -212,6 +215,9 @@ def local_block(t: torch.Tensor, spec: Optional[tuple], mesh
                              f"split {n} ways over {axes}")
         step = t.shape[dim] // n
         t = t.narrow(dim, mesh.index(axes) * step, step)
+        cut = True
+    if cut:
+        return t.clone(memory_format=torch.contiguous_format)
     return t.contiguous()
 
 

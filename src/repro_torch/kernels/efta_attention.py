@@ -14,7 +14,11 @@ GQA maps query head ``bh`` to kv head ``bh // (H // Hkv)``.
 ``efta_attention`` dispatches on the device of ``q``: a CPU tensor runs
 :func:`efta_attention_torch`; a CUDA tensor launches the kernel of
 ``csrc/efta_attention.cu`` (built with ``nvcc`` on first use) or raises.
-There is no fallback from one to the other.
+There is no fallback from one to the other. A meta tensor (the dry run,
+``launch/dryrun.py``) computes nothing and returns what the CUDA route
+returns, in shape and dtype. A launch, or its meta stand-in, is recorded
+in an open :func:`~repro_torch.utils.opcount.opcount` context with
+:func:`efta_attention_work`'s bytes and operations.
 
 Fault descriptor (int32[8]): ``[site, kv_block, bh, row, col, bit, on, _]``
 with ``bh = batch * H + head`` and ``row`` the absolute query row — one SEU
@@ -35,6 +39,7 @@ from repro_torch.kernels._efta_common import (DTYPES, MODES, NO_WINDOW,
                                               _correct_strided, _flip,
                                               _fold_prod, _fold_slices,
                                               as_descriptor)
+from repro_torch.utils.opcount import record_launch
 
 # fault descriptor layout (int32[8]):
 # [site, kv_block, bh, row, col, bit, enabled, _pad]
@@ -107,12 +112,28 @@ def _tile_counts(q, k, v, *, cfg: EFTAConfig, causal=False, window=None,
                     block_q=block_q)
     if plain or q.device.type == "cpu":
         return _efta_torch(call, q, k, v, cfg)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"efta_attention runs on cpu, cuda or meta "
+                         f"tensors; got {q.device}")
+    out = _efta_device(call, q, k, v, cfg)
     if q.device.type == "cuda":
-        out = _efta_cuda(call, q, k, v, cfg)
         efta_attention.launches += 1
-        return out
-    raise ValueError(f"efta_attention runs on cpu or cuda tensors; got "
-                     f"{q.device}")
+    record_launch("efta_attention",
+                  lambda: efta_attention_work(q, k, causal=causal))
+    return out
+
+
+def efta_attention_work(q, k, *, causal: bool = False) -> Tuple[int, int]:
+    """(bytes, operations) of one launch on q (B, H, Sq, D) and k (B, Hkv,
+    Skv, D): q, k, v read once and the output written once; QK^T and PV
+    over the visible (row, key) pairs (every pair non-causal, the lower
+    triangle causal), 2 flops a multiply-add. The bound of the kernel's
+    table in PERF.md and the dry run's count of a launch."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    return nbytes, B * H * pairs * 4 * D
 
 
 def efta_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -392,7 +413,12 @@ def _lib():
     return lib
 
 
-def _efta_cuda(c: _Call, q, k, v, cfg: EFTAConfig):
+def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
+    """The kernel's route. A CUDA ``q`` launches the kernel. A meta ``q``
+    takes the same checks and makes and sums the same tensors, computing
+    nothing (the per-thread-block counts at the widest tiling,
+    ``16 * _MAX_GROUPS`` rows a block), so a dry run counts what the card
+    does."""
     dtype = q.dtype
     if dtype not in DTYPES:
         raise TypeError(f"efta_attention kernel takes float32 or bfloat16, "
@@ -404,33 +430,39 @@ def _efta_cuda(c: _Call, q, k, v, cfg: EFTAConfig):
         raise ValueError(f"unknown EFTA mode {cfg.mode!r}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     BH, D = c.b * c.h, c.d
-    lib = _lib()
-    # sub-tiles per query tile: a thread block takes 16 or 32 rows of one
-    # reference tile (0 = the kernel takes no tiling of these shapes)
-    n_sub = lib.efta_attention_tiles(DTYPES[dtype], c.block_q, c.block_kv,
-                                     D, c.s_kv, c.s_out, _MAX_GROUPS)
-    if n_sub <= 0:
-        raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} "
-                         f"(stride {c.s_kv}) x head_dim {D} has no tiling "
-                         f"that fits one thread block")
+    launch = q.device.type == "cuda"
+    if launch:
+        lib = _lib()
+        # sub-tiles per query tile: a thread block takes 16 or 32 rows of
+        # one reference tile (0 = the kernel takes no tiling of these shapes)
+        n_sub = lib.efta_attention_tiles(DTYPES[dtype], c.block_q,
+                                         c.block_kv, D, c.s_kv, c.s_out,
+                                         _MAX_GROUPS)
+        if n_sub <= 0:
+            raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} "
+                             f"(stride {c.s_kv}) x head_dim {D} has no "
+                             f"tiling that fits one thread block")
+    else:
+        n_sub = -(-c.block_q // (16 * _MAX_GROUPS))
     out = torch.empty_like(q)
     rep = torch.empty((BH, c.n_q * n_sub, 5), dtype=torch.int32,
                       device=q.device)
-    eps1, eps2, eps3 = c.eps
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.efta_attention_launch(
-        DTYPES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), rep.data_ptr(),
-        BH, c.grp, c.sq, k.shape[2], D, c.block_q, c.block_kv, c.n_q,
-        c.n_kv, c.kv_len, c.s_kv, c.s_out, int(c.causal), c.window,
-        c.scale, eps1, eps2, eps3, c.cap, c.cap * c.g_kv, c.cap - 1e-3,
-        float(c.kv_len) + 1e-3,
-        MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
-        int(cfg.shadow_rowmax), _MAX_GROUPS, *c.fault, stream)
-    if rc != 0:
-        msg = lib.efta_attention_error_string(rc).decode()
-        raise RuntimeError(f"efta_attention kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+    if launch:
+        eps1, eps2, eps3 = c.eps
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.efta_attention_launch(
+            DTYPES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), rep.data_ptr(),
+            BH, c.grp, c.sq, k.shape[2], D, c.block_q, c.block_kv, c.n_q,
+            c.n_kv, c.kv_len, c.s_kv, c.s_out, int(c.causal), c.window,
+            c.scale, eps1, eps2, eps3, c.cap, c.cap * c.g_kv, c.cap - 1e-3,
+            float(c.kv_len) + 1e-3,
+            MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
+            int(cfg.shadow_rowmax), _MAX_GROUPS, *c.fault, stream)
+        if rc != 0:
+            msg = lib.efta_attention_error_string(rc).decode()
+            raise RuntimeError(f"efta_attention kernel launch failed: CUDA "
+                               f"error {rc} ({msg})")
     # per-thread-block partial counts, summed here: no atomics
     return out, rep.reshape(BH, c.n_q, n_sub, 5).sum(dim=2,
                                                     dtype=torch.int32)

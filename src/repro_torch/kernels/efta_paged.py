@@ -40,6 +40,7 @@ from repro_torch.kernels._efta_common import (DTYPES, MODES, NO_WINDOW,
                                               _correct_strided, _flip,
                                               _fold_prod, _fold_slices,
                                               as_descriptor)
+from repro_torch.utils.opcount import record_launch
 
 # fault descriptor layout (int32[8]):
 # [site, table_block, batch, kv_head, tile_row, col, bit, enabled]
@@ -160,6 +161,8 @@ def efta_paged_attention(
         out, rep, bad = _paged_cuda(call, k_pool, v_pool, k_checks, v_checks,
                                     block_tables, kv_lens, cfg)
         efta_paged_attention.launches += 1
+        # a call without its work: that depends on the tables' contents
+        record_launch("efta_paged_attention")
     else:
         raise ValueError(f"efta_paged_attention runs on cpu or cuda tensors; "
                          f"got {q.device}")

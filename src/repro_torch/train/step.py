@@ -102,12 +102,12 @@ def state_specs(model: Model, mesh, *, pod_sync: str = "dense"
                       step=(), ef=ps if pod_sync == "int8_ef" else None)
 
 
-def compute_specs(model: Model, mesh):
-    """The layout the model trains with on ``mesh``: every parameter
-    whole, but the MoE experts, in the block :func:`~repro_torch.models.
-    moe.expert_spec` gives."""
+def compute_specs(model: Model, mesh, *, mode: str = "train"):
+    """The layout the model computes with on ``mesh`` in ``mode`` (the
+    forward's): every parameter whole, but the MoE experts, in the block
+    :func:`~repro_torch.models.moe.expert_spec` gives."""
     shapes = init_params(torch.Generator(), model.cfg, "meta")
-    experts = (expert_spec(mesh, model.cfg.moe)
+    experts = (expert_spec(mesh, model.cfg.moe, mode=mode)
                if model.cfg.moe is not None else {})
     flat = []
     for path, p in tree_flatten_with_path(shapes):

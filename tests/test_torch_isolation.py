@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``repro_torch`` imports JAX or the JAX
-package, and every module imports in a process where ``jax``, the JAX
-package and ``ml_dtypes`` (a JAX dependency) cannot be imported at all."""
+"""The port stands alone: no file of ``repro_torch``, of ``examples_torch``
+or ``chip_smoke.py`` imports JAX or the JAX package, and every module and
+example imports in a process where ``jax``, the JAX package and
+``ml_dtypes`` (a JAX dependency) cannot be imported at all."""
 import os
 import re
 import subprocess
@@ -51,4 +52,44 @@ def test_every_module_imports_without_jax():
             "repro_torch.distributed.mesh",
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.collectives",
-            "repro_torch.launch.mesh"} <= names
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.utils.opcount"} <= names
+
+
+EXAMPLES = SRC.parent / "examples_torch"
+
+
+def test_no_jax_or_reference_imports_in_examples_or_chip_smoke():
+    files = sorted(EXAMPLES.glob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    assert len(files) == 6
+    offenders = []
+    for f in files:
+        text = f.read_text()
+        for m in FORBIDDEN.finditer(text):
+            line = text[:m.start()].count("\n") + 1
+            offenders.append(f"{f.name}:{line}")
+    assert not offenders, offenders
+
+
+def test_every_example_imports_without_jax():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        f"sys.path.insert(0, {str(EXAMPLES)!r})\n"
+        "names = sys.argv[1:]\n"
+        "for n in names:\n"
+        "    assert callable(importlib.import_module(n).main)\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert 'jax' not in loaded and 'ml_dtypes' not in loaded\n"
+        "print(' '.join(names))\n")
+    names = sorted(f.stem for f in EXAMPLES.glob("*.py"))
+    assert names == ["fault_injection_campaign", "paged_prefix_serving",
+                     "quickstart", "serve_fault_tolerant",
+                     "train_with_restart"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code, *names], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == names
