@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only dist,vlm,train,dryrun,examples]
+    python3 chip_smoke.py [--seed N]
+        [--only dist,vlm,train,dryrun,b2_wide,examples,b2_narrow]
 
 Run from the root of a checkout. Phases, each printing one JSON line:
 
@@ -33,7 +34,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              scaled_dot_product_attention on a contiguous copy (a yardstick
              the port never calls): CUDA events around 50 back-to-back calls,
              and the profiler's device time per call of both.
-6. profile — the clean run again under torch.profiler: device time by
+6. profile — the clean run's prompts again, ``PROFILED_NEW`` new tokens
+             each, under torch.profiler: device time by
              kernel group and the device's busy share of the wall time.
 7. kernel_b2 — the fused contiguous EFTA kernel (``efta_attention.cu``)
              against its plain PyTorch version on the same CUDA tensors:
@@ -67,7 +69,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              with thread blocks of 32 and of 16 rows; the kernel against
              its plain version on those inputs, clean and under each
              compute-site SEU.
-10. ring_profile — the clean ring run under torch.profiler.
+10. ring_profile — the clean ring run's prompts, ``PROFILED_NEW`` new
+             tokens each, under torch.profiler.
 11. spec_serve — speculative decoding on the fused backend: the n-gram
              proposer at K 4, 8 slots, 16 requests of 64-512 tokens (half a
              tiled 3-token pattern, half random), 32 new tokens, greedy, in
@@ -155,7 +158,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 22. vlm    — llama-3.2-vision-11b at published width and depth (40 layers
              in 8 superblocks, d 4096, 32 heads of 128 on 8, vocab
              128256), bf16, ``greedy_generate`` on B 8 x 512 prompt tokens
-             + 32 new with a random frontend of 1,600 rows: under
+             + 16 new with a random frontend of 1,600 rows: under
              ``efta_pallas`` at the published ``block_kv`` 512 the
              cross-attention raises (1,600 rows do not divide the block);
              under ``efta`` and under ``efta_pallas`` with ``block_kv`` 64,
@@ -172,7 +175,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              layers equal the CPU's (1e-5 relative, 1e-4 of each leaf's
              max); ``efta_pallas`` under autograd raises; the loss of one
              batch trained on falls under 0.92x within 100 steps, and the
-             eval loss over 100 steps of fresh batches is reported (at
+             eval loss over 40 steps of fresh batches is reported (at
              gpt2's vocab it does not fall that fast); a crash after an
              async checkpoint at step 10 of the fresh-batch run resumes to
              its loss at step 20 (rtol 1e-5); step time, tokens/s, MFU,
@@ -190,12 +193,36 @@ dryrun   — the dry run (``repro_torch.launch.dryrun``) against the card:
              production cells of ``experiments/hillclimb.py`` (16x16,
              rank 0 of 256 fake ranks) through the dry run's CLI, side by
              side: dominant term, the three terms, peak, ``fits_80gb``.
+b2_wide  — kernel B2 at the dry run's wide KV blocks (its second
+             kernel: scores in a global workspace, a persistent
+             grid): (a) block_kv 2,048 (two blocks, causal), 4,096 (two
+             blocks, ragged kv_len) and 32,768 (Sq 16), at D 128 and 256,
+             f32 and bf16, 2 query heads on one KV head, against the plain
+             version clean and under each compute-site SEU (as phase 19's
+             regimes: counts equal, outputs within ``out_bound`` plus
+             ``p_rounding_slack``), timed with bound and SDPA; (b) the
+             Python tiling mirror (the meta route's rule) against the
+             kernel's ``efta_attention_tiles`` on 2,112 shapes; (c)
+             deepseek-coder-33b at full width, 2 of 62 layers, bf16,
+             ``Model.prefill`` of 32,768 tokens under ``efta_pallas`` at
+             block_kv 2,048 (2 B2 launches): the dry run's one-rank
+             prediction equal to the card's ``opcount`` (FLOPs, ops,
+             launches) with the peak within 5%; time, tokens/s, peak, B2's
+             device time per launch, its bound, SDPA; that launch against
+             the plain version on the first and last KV heads' 7 query
+             heads, clean and under a GEMM I and an EXP SEU (counts equal,
+             within ``out_bound`` plus ``p_rounding_slack``, the other
+             heads bit-equal to the clean call); one SEU per compute site
+             gives the clean logits, detected at every site but GEMM II.
 examples — the five ``examples_torch/`` scripts as subprocesses on the
              card, side by side: each exits 0; ``paged_prefix_serving``
              launches B1. That example then runs once more in this
              process with every B1 call held against the plain version
              on the same inputs (head_dim 16, block 16: a regime no other
              phase reaches): outputs within the bound, counts equal.
+b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
+             earlier phases timed and hashed, to hold two checkouts'
+             kernels to each other (``phase_b2_narrow``).
 
 dist     — distributed training on two gloo ranks that share the card
              (subprocesses of this script on cuda:0; nccl refuses two
@@ -215,12 +242,12 @@ acceptance rate of runs without the profiler, and the device's busy share
 over a window of steps (profiler, CUDA activity) of one run each that is
 not timed: the bf16 faulted twin after its faults, the cold draft, the
 gather run with a flip after its repair. The kernels line carries B2's
-numbers in the regimes of phases 16-20 and 22 and B1's in those of phase
-19 under ``regimes``.
+numbers in the regimes of phases 16-20, b2_wide and 22 and B1's in those
+of phase 19 under ``regimes``.
 
 The phases run in the order 1, 2, dist (while this process holds next
-to nothing on the card), 3-5, 7-9, 14-19, 22, 20, 23, dryrun, examples,
-6, 10, 21, 11-13:
+to nothing on the card), 3-5, 7-9, 14-19, b2_wide, 22, 20, 23, dryrun,
+examples, 6, 10, 21, 11-13:
 after profiled runs of a few hundred thousand launches the profiler
 drops kernel records from later windows (seen on the card), so the
 whole-run profiles (6, 10) and the profiled windows of 11-13 and 20-23
@@ -307,11 +334,13 @@ def phase_device(torch):
 
 def ptxas_summary(log):
     """Registers, stack and spills per kernel instantiation, from nvcc's
-    ``-Xptxas -v`` output: {"bf16" | "f32": "N registers, ..."}."""
+    ``-Xptxas -v`` output: {"bf16" | "f32" [+ " wide"]: "N registers,
+    ..."} (" wide": B2's ``efta_attention_kernel_wide``)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = "bf16" if "bfloat16" in ln else "f32"
+            name = ("bf16" if "bfloat16" in ln else "f32") + (
+                " wide" if "kernel_wide" in ln else "")
         elif name and ("spill" in ln or "registers" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":")[-1].strip()
                          ).strip()
@@ -712,6 +741,10 @@ def time_ms(torch, fn, reps, warmup=2):
 
 
 PRE_CALLS = 3            # untimed calls at the start of a profiled window
+# new tokens a request in the whole-run profiles of phases 6 and 10 (the
+# timed runs make 32): post-processing costs ~0.24 ms a kernel record, and
+# 32 made phase 10 parse ~391k of them
+PROFILED_NEW = 8
 LEAD_CYCLES = 10_000_000  # ~5 ms spin kernel opening a profiled window
 MARK_CYCLES = 100_000    # ~0.05 ms spin kernels bracketing the timed calls
 
@@ -944,7 +977,7 @@ def phase_profile(torch, np, serve, seed):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run = serve_run(torch, np, serve["model"], serve["params"],
-                        serve["prompts"], n_new=serve["n_new"],
+                        serve["prompts"], n_new=PROFILED_NEW,
                         faulted=False, seed=seed)
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -1320,12 +1353,14 @@ def b2_regime_work(cap):
                                causal=bool(cap["kw"].get("causal")))
 
 
-def b2_regime_numbers(torch, cap, p_rounding=False):
+def b2_regime_numbers(torch, cap, p_rounding=False, reps=(50, 20),
+                      ragged_sdpa=False):
     """Kernel against its plain version on a captured launch (clean and
     under each compute-site SEU in correct mode, top exponent bit, on the
     last query row), its device time, bound, plain time and SDPA's device
     time on the same q/k/v. ``p_rounding``: bf16 outputs may also differ
-    by ``p_rounding_slack`` (phase 19's regimes)."""
+    by ``p_rounding_slack`` (phase 19's regimes). ``reps``: the calls of
+    the event and of the profiled windows."""
     import torch.nn.functional as F
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.core.fault import Site
@@ -1367,20 +1402,25 @@ def b2_regime_numbers(torch, cap, p_rounding=False):
     kc, vc = (t.repeat_interleave(grp, dim=1).contiguous() for t in (k, v))
     causal = bool(kw.get("causal"))
 
+    # ``ragged_sdpa``: a non-causal call's kv_len as SDPA's mask
+    mask = (torch.arange(k.shape[2], device=q.device)[None]
+            < int(kw["kv_len"]) if ragged_sdpa else None)
+
     def sdpa():
-        return F.scaled_dot_product_attention(q, kc, vc, is_causal=causal)
+        return F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
+                                              is_causal=causal)
 
     nbytes, flops = b2_regime_work(cap)
     peak = PEAK_FLOPS[str(q.dtype)]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return {"shape": list(q.shape), "skv": k.shape[2], "causal": causal,
-            "ms": time_ms(torch, lambda: run(efta_attention), reps=50),
-            "device_ms": device_ms(torch, lambda: run(efta_attention), 20,
-                                   name="efta_attention_kernel"),
+            "ms": time_ms(torch, lambda: run(efta_attention), reps=reps[0]),
+            "device_ms": device_ms(torch, lambda: run(efta_attention),
+                                   reps[1], name="efta_attention_kernel"),
             "plain_ms": time_ms(torch, lambda: run(efta_attention_torch),
                                 reps=3, warmup=1),
-            "library_ms": time_ms(torch, sdpa, reps=50),
-            "library_device_ms": device_ms(torch, sdpa, 20),
+            "library_ms": time_ms(torch, sdpa, reps=reps[0]),
+            "library_device_ms": device_ms(torch, sdpa, reps[1]),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "max_abs_err": max_err,
@@ -1435,7 +1475,7 @@ def phase_ring_profile(torch, np, ring):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run = ring_run(torch, np, ring["model"], ring["params"],
-                       ring["prompts"], n_new=ring["n_new"])
+                       ring["prompts"], n_new=PROFILED_NEW)
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kern)
@@ -2981,6 +3021,8 @@ def ssm_run(torch, np, arch, dtype, seed):
 
 VLM_ARCH = "llama-3.2-vision-11b"
 VLM_BLOCK_KV = 64       # divides its 1,600 frontend rows (512 does not)
+VLM_NEW = 16            # new tokens of its greedy runs (32 until the
+#                         script neared its time limit)
 VLM_F32_LAYERS = 10     # two superblocks: the f32 check against efta
 VLM_PROFILED_STEPS = 1  # decode steps in the profiled window (~36k kernels)
 
@@ -3063,7 +3105,8 @@ def phase_vlm(torch, np, seed):
     superblocks of 4 dense blocks and a cross block; d 4096, 32 heads of
     128 on 8, d_ff 14336, vocab 128256), random bf16 weights from the
     seed, on the static-batch route: ``greedy_generate`` on B 8 x 512
-    prompt tokens + 32 new, with a random frontend (B, 1600, 4096).
+    prompt tokens + ``VLM_NEW`` (16) new, with a random frontend (B, 1600,
+    4096).
 
     * Under ``efta_pallas`` at the published ``block_kv`` 512 the
       cross-attention's 1,600 rows do not divide the block: it raises.
@@ -3083,7 +3126,7 @@ def phase_vlm(torch, np, seed):
       64 equal those under ``efta`` except at near ties.
     """
     from repro_torch.kernels.efta_attention import efta_attention
-    B, S, n_new, M = 8, 512, 32, 1600
+    B, S, n_new, M = 8, 512, VLM_NEW, 1600
     free(torch)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE)
@@ -3195,6 +3238,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_LR = 1e-3
 TRAIN_MAX_STEPS = 100   # the one-batch loss must fall under 0.92x within
 TRAIN_EVAL_EVERY = 10
+TRAIN_EVAL_STEPS = 40   # the fresh-batch run (its eval loss reported)
 RESUME_STEPS, RESUME_AT = 20, 10
 
 
@@ -3370,7 +3414,7 @@ def phase_train(torch, np, seed):
           f"0.92x")
     res["one_batch_loss_falls"] = {"before": before, "after": after,
                                    "steps": steps, "curve": curve}
-    # (b) reported: fresh pipeline batches for TRAIN_MAX_STEPS steps, the
+    # (b) reported: fresh pipeline batches for TRAIN_EVAL_STEPS steps, the
     # eval loss (batch 10,000) every TRAIN_EVAL_EVERY, the step times; an
     # async checkpoint after RESUME_AT steps and the loss at RESUME_STEPS
     # for the crash and resume below
@@ -3382,7 +3426,7 @@ def phase_train(torch, np, seed):
     eval_batch = pipeline(10_000)
     before = loss_of(state.params, eval_batch)
     step_ms, detected, evals = [], [], []
-    for steps in range(TRAIN_EVAL_EVERY, TRAIN_MAX_STEPS + 1,
+    for steps in range(TRAIN_EVAL_EVERY, TRAIN_EVAL_STEPS + 1,
                        TRAIN_EVAL_EVERY):
         state, metrics = train_steps(
             torch, step_fn, state, pipeline, steps,
@@ -3405,7 +3449,7 @@ def phase_train(torch, np, seed):
     res["pipeline_eval"] = {"before": before,
                             "after": evals[-1]["eval_loss"],
                             "ratio": evals[-1]["eval_loss"] / before,
-                            "steps": TRAIN_MAX_STEPS, "evals": evals,
+                            "steps": TRAIN_EVAL_STEPS, "evals": evals,
                             "ft_detected_steps": sum(d > 0
                                                      for d in detected),
                             "ft_detected_total": sum(detected)}
@@ -3415,7 +3459,7 @@ def phase_train(torch, np, seed):
                    "flops_per_step": 8 * n_params * tokens,
                    "mfu": 8 * n_params * tokens / (med / 1e3) / peak,
                    "bound_ms": 8 * n_params * tokens / peak * 1e3}
-    steps = TRAIN_MAX_STEPS
+    steps = TRAIN_EVAL_STEPS
     batch = pipeline(steps)
     _, prof = profiled_top(torch, lambda: step_fn(state, batch))
     # plain EFTA at the layer's shapes: forward, and forward + backward
@@ -3630,6 +3674,383 @@ def phase_dryrun(torch, np, seed):
     emit({"phase": "dryrun", "ok": True,
           "phase_s": time.perf_counter() - t_phase, **res})
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase b2_wide: kernel B2 at the dry run's wide KV blocks, deepseek-coder's
+# 32k prefill on it, and the dry run held to that prefill
+# ---------------------------------------------------------------------------
+# (name, block_kv, Sq, Skv, causal, kv_len): two KV blocks of 2,048 keys
+# (fold stride 64), two of 4,096 (stride 128) with a ragged tail, and
+# 32,768 keys a block (stride 128, 256 fold segments) at 16 query rows
+B2_WIDE_CASES = (("bkv2048 causal", 2048, 4096, 4096, True, None),
+                 ("bkv4096 ragged", 4096, 256, 8192, False, 8092),
+                 ("bkv32768 Sq16", 32768, 16, 65536, False, None))
+DEEPSEEK = "deepseek-coder-33b"
+DEEPSEEK_LAYERS = 2      # of 62: one card holds the weights of a few
+DEEPSEEK_SEQ = 32768
+WIDE_PEAK_SLACK = 0.05   # the predicted peak within 5% of the card's
+
+
+def b2_wide_kernel(torch):
+    """(a) B2 against its plain version at each case of ``B2_WIDE_CASES``,
+    at D 128 and 256 (2 query heads on one KV head), f32 and bf16, clean
+    and under each compute-site SEU (``b2_regime_numbers``), each timed
+    with its bound and SDPA; calls per timing window from one timed call,
+    so that each case takes about a second."""
+    from repro_torch.core.efta import EFTAConfig
+    from repro_torch.kernels.efta_attention import efta_attention
+    mod = b2_module()
+    res = {}
+    for ci, (name, bkv, sq, skv, causal, kv_len) in enumerate(B2_WIDE_CASES):
+        for d in (128, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator().manual_seed(2300 + 10 * ci + d)
+                q = torch.randn((1, 2, sq, d), generator=g)
+                k = torch.randn((1, 1, skv, d), generator=g)
+                v = torch.randn((1, 1, skv, d), generator=g)
+                q, k, v = (x.to(DEVICE, dtype) for x in (q, k, v))
+                cfg = EFTAConfig(block_kv=bkv)
+                kw = {"cfg": cfg, "causal": causal}
+                if kv_len is not None:
+                    kw["kv_len"] = kv_len
+                one = time_ms(torch, lambda: efta_attention(q, k, v, **kw),
+                              reps=1, warmup=1)
+                n = max(2, min(50, int(300 / max(one, 1e-3))))
+                t = mod.tiling(mod.DTYPES[dtype], min(128, sq), bkv, d,
+                               cfg.kv_stride(bkv), cfg.out_stride(d))
+                res[f"{name} D{d} {str(dtype)[6:]}"] = dict(
+                    b2_regime_numbers(torch, {"q": q, "k": k, "v": v,
+                                              "kw": kw}, p_rounding=True,
+                                      reps=(n, max(2, n // 2)),
+                                      ragged_sdpa=kv_len is not None),
+                    block_kv=bkv, s_kv=cfg.kv_stride(bkv),
+                    tiling=t._asdict())
+                check(t.wide == 1, f"B2 {name} D{d}: not the wide path")
+    return res
+
+
+def b2_wide_tiling():
+    """(b) The Python mirror of the tiling rule against the built kernel's
+    ``efta_attention_tiles`` over block_kv x D x dtype x s_kv x block_q x
+    row groups, refused shapes among them: equal in every field."""
+    from repro_torch.core.efta import EFTAConfig
+    mod = b2_module()
+    n = wide = refused = 0
+    for code in (0, 1):
+        for bq in (16, 128):
+            for mg in (1, 2):
+                for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
+                    for d in (64, 72, 112, 128, 160, 256):
+                        for skv in (4, 8, 16, 32, 64, 128):
+                            if skv > bkv:
+                                continue
+                            shapes = (code, bq, bkv, d, skv,
+                                      EFTAConfig().out_stride(d), mg)
+                            a, b = mod.tiling(*shapes), mod.kernel_tiling(
+                                *shapes)
+                            check(a == b, f"tiling {shapes}: mirror {a} vs "
+                                  f"kernel {b}")
+                            n += 1
+                            wide += bool(b and b.wide)
+                            refused += b is None
+    return {"shapes": n, "wide": wide, "refused": refused}
+
+
+def deepseek_config():
+    """deepseek-coder-33b at its published width with ``DEEPSEEK_LAYERS``
+    layers, bf16, under ``efta_pallas`` at the dry run's prefill block."""
+    from repro_torch.launch.dryrun import cell_config
+    cfg = cell_config(DEEPSEEK, "prefill_32k")
+    a = cfg.attn
+    check(cfg.d_model == 7168 and cfg.d_ff == 19200 and
+          cfg.vocab_size == 32256 and (a.num_heads, a.num_kv_heads,
+                                       a.head_dim) == (56, 8, 128) and
+          cfg.ft.block_kv == 2048, f"{DEEPSEEK} is not at full width")
+    return dataclasses.replace(cfg, dtype="bfloat16",
+                               num_layers=DEEPSEEK_LAYERS,
+                               ft=dataclasses.replace(
+                                   cfg.ft, attn_impl="efta_pallas"))
+
+
+def one_call_device_ms(torch, fn, name):
+    """``fn()`` once under the profiler (CUDA activity, opened by a spin
+    kernel: the profiler drops the first records of a window); returns
+    (its result, the device ms of each kernel record whose name holds
+    ``name``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(LEAD_CYCLES)
+        res = fn()
+        torch.cuda.synchronize()
+    return res, [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+
+
+def b2_deepseek_held(torch, q, k, v, kw, clean, ev):
+    """Deepseek's B2 launch (56 query heads on 8 KV heads, grp 7, 16 causal
+    KV blocks of 2,048, 57,344 (bh, tile) pairs on the persistent grid)
+    held to its plain version. The plain version holds (7, 256, 128, 2,048)
+    f32 temporaries for one KV head's query heads (all 56: 15 GB each), so
+    it runs a KV head at a time: the first and the last KV head against
+    those heads of the kernel's clean 56-head call (``clean``), and under
+    an SEU at GEMM I and at EXP (correct mode, top exponent bit, the last
+    row, the last KV block) on query head 3 of the last KV head, against
+    the kernel's 56-head call with that fault: counts and bad planes equal,
+    the heads within ``out_bound`` plus ``p_rounding_slack``, every other
+    head bit-equal to the clean call. Returns the errors, the counts and
+    the plain version's time on 7 heads (CUDA events ``ev``)."""
+    from repro_torch.core.efta import reference_attention
+    from repro_torch.core.fault import Site
+    from repro_torch.kernels.efta_attention import (efta_attention,
+                                                    efta_attention_torch)
+    S, grp, nkv = q.shape[2], q.shape[1] // k.shape[1], k.shape[1]
+    last_blk = S // kw["cfg"].block_kv - 1
+
+    def group(j):
+        return slice(j * grp, (j + 1) * grp)
+
+    def slack(j):
+        # 2^-7 (P |V|), P the causal softmax in f32, 2,048 rows at a time
+        hs, kj, vj = group(j), k[:, j:j + 1], v[:, j:j + 1].float().abs()
+        return 2.0 ** -7 * torch.cat([reference_attention(
+            q[:, hs, a:a + 2048], kj, vj, causal=True, q_offset=a,
+            sm_scale=kw.get("sm_scale")) for a in range(0, S, 2048)], dim=2)
+
+    def plain(j, fault=None):
+        return efta_attention_torch(q[:, group(j)], k[:, j:j + 1],
+                                    v[:, j:j + 1], fault=fault, **kw)
+    ev[0].record()
+    ref0 = plain(0)
+    ev[1].record()
+    torch.cuda.synchronize()
+    res = {"plain_ms": ev[0].elapsed_time(ev[1]), "clean": {}, "seu": {}}
+    check(int(clean[1].sum()) == 0, "deepseek B2: clean detections")
+    for j in (0, nkv - 1):
+        ref = ref0 if j == 0 else plain(j)
+        err, ratio = b2_compare(torch, (clean[0][:, group(j)], clean[1]), ref,
+                                f"deepseek B2 KV head {j}", slack(j))
+        res["clean"][f"kv_head_{j}"] = {"max_abs_err": err,
+                                        "err_over_bound": ratio}
+    del ref0, ref
+    j, h = nkv - 1, min(3, grp - 1)
+    rest = torch.ones(q.shape[1], dtype=torch.bool, device=q.device)
+    rest[group(j)] = False
+    for site in (Site.GEMM1, Site.EXP):
+        desc = [int(site), last_blk, 0, S - 1, 3, seu_bit("correct"), 1, 0]
+        got = efta_attention(q, k, v, fault=[desc[0], desc[1], j * grp + h]
+                             + desc[3:], **kw)
+        ref = plain(j, fault=[desc[0], desc[1], h] + desc[3:])
+        torch.cuda.synchronize()
+        err, ratio = b2_compare(torch, (got[0][:, group(j)], got[1]), ref,
+                                f"deepseek B2 {site.name}", slack(j))
+        check(int(got[1].sum()) >= 1, f"deepseek B2: {site.name} SEU not "
+              f"detected")
+        check(torch.equal(got[0][:, rest], clean[0][:, rest]),
+              f"deepseek B2 {site.name}: heads without the fault differ "
+              f"from the clean call")
+        res["seu"][site.name] = {"detected": got[1].tolist(),
+                                 "max_abs_err": err, "err_over_bound": ratio}
+        del got, ref
+    return res
+
+
+def b2_wide_deepseek(torch, seed):
+    """(c) deepseek-coder-33b, 2 layers at full width, bf16, random weights
+    from the seed: ``Model.prefill`` of B 1 x 32,768 tokens under
+    ``efta_pallas`` at ``block_kv`` 2,048 (56 query heads on 8 KV heads of
+    128, causal: 2 B2 launches on the wide path). The dry run's one-rank
+    prediction on meta against the same call counted on the card (FLOPs,
+    ops, launches equal; peak within 5%); the prefill's time, tokens/s and
+    peak; B2's device time per launch (profiler, one launch on the first
+    layer's inputs) beside its bound and SDPA on the same inputs, and that
+    launch held to its plain version (``b2_deepseek_held``); nothing
+    detected clean; under one SEU per compute site (correct mode, top
+    exponent bit, last row, the last KV block, in every layer) the
+    last-position logits of the clean run: exactly where a shadow or the
+    EXP recompute restores the value, within 2e-2 of max |logit| with the
+    same argmax where checksum arithmetic does (as phase 8 holds gpt2's),
+    detected at every site but GEMM II."""
+    import torch.nn.functional as F
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.core.fault import FaultSpec, Site
+    from repro_torch.kernels.efta_attention import (efta_attention,
+                                                    efta_attention_work)
+    cfg = deepseek_config()
+    shape = ShapeCfg("deepseek_prefill", DEEPSEEK_SEQ, 1, "prefill")
+    n0 = efta_attention.launches
+    line, out = dryrun_pair(torch, cfg, shape, seed, "deepseek prefill")
+    n_b2 = efta_attention.launches - n0
+    calls = line["launches"].get("efta_attention", {}).get("calls")
+    check(n_b2 == calls == DEEPSEEK_LAYERS, f"deepseek prefill: B2 launched "
+          f"{n_b2} times, counted {calls}, for {DEEPSEEK_LAYERS} layers")
+    check(abs(line["peak_ratio"] - 1) <= WIDE_PEAK_SLACK, f"deepseek "
+          f"prefill: predicted peak {line['peak_pred']} vs the card's "
+          f"{line['peak_card']}")
+    del out
+    free(torch)
+    from repro_torch.launch import dryrun
+    spec = dryrun.input_specs(cfg, shape, None, device=DEVICE, seed=seed)
+    model, params, toks = spec["model"], spec["params"], spec["tokens"]
+
+    def prefill(fault=None):
+        return model.prefill(params, toks, model.init_cache(
+            1, cache_len=DEEPSEEK_SEQ), fault=fault)
+
+    # the clean run, timed, keeping copies of the first B2 call's inputs
+    rec = RegimeRecorder()
+    try:
+        torch.cuda.synchronize()
+        n0 = efta_attention.launches
+        t0 = time.perf_counter()
+        base, rep0, _ = prefill()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rec.restore()
+    check(efta_attention.launches - n0 == DEEPSEEK_LAYERS,
+          "deepseek prefill: B2 launches")
+    check(tuple(base.shape) == (1, cfg.vocab_size) and
+          bool(torch.isfinite(base).all()), "deepseek prefill: logits")
+    check(int(rep0.detected.sum()) == 0, "deepseek prefill: clean "
+          "detections")
+    seu = {}
+    last_blk = DEEPSEEK_SEQ // cfg.ft.block_kv - 1
+    for site in (Site.GEMM1, Site.ROWMAX, Site.EXP, Site.ROWSUM,
+                 Site.GEMM2):
+        f = FaultSpec.single(site, block=last_blk, head=1,
+                             row=DEEPSEEK_SEQ - 1, col=3,
+                             bit=seu_bit("correct"))
+        got, rep, _ = prefill(f)
+        diff = float((got.float() - base.float()).abs().max())
+        same_top = bool(torch.equal(got.argmax(-1), base.argmax(-1)))
+        n = int(rep.detected.sum())
+        if site in (Site.ROWMAX, Site.EXP, Site.ROWSUM):
+            check(torch.equal(got, base) and n >= 1, f"deepseek prefill "
+                  f"{site.name}: logits off the clean ones by {diff:.3e}, "
+                  f"detected {rep.detected.tolist()}")
+        else:
+            # a GEMM II flip goes uncounted (ROADMAP, standing item 2)
+            check(same_top and diff <= 2e-2 * float(base.abs().max()) and
+                  (n >= 1 or site == Site.GEMM2), f"deepseek prefill "
+                  f"{site.name}: logits off the clean ones by {diff:.3e}, "
+                  f"detected {rep.detected.tolist()}")
+        seu[site.name] = {"detected": rep.detected.sum(0).tolist(),
+                          "max_abs_logit_diff": diff, "same_argmax": same_top}
+        del got, rep
+    # B2 once on the first layer's inputs: the profiler's device time and
+    # CUDA events around the launch
+    cap = rec.captured[(DEEPSEEK_SEQ, DEEPSEEK_SEQ, True)]
+    q, k, v = cap["q"], cap["k"], cap["v"]
+    kw = {n: x for n, x in cap["kw"].items() if n != "fault"}
+    mod, c = b2_module(), kw["cfg"]
+    check(c.block_kv == 2048 and kw.get("causal"), f"deepseek prefill: B2 "
+          f"called with {kw}")
+    nbytes, flops = efta_attention_work(q, k, causal=True)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+    kc, vc = (t.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+              for t in (k, v))
+    sdpa_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kc, vc, is_causal=True), 3)
+    del kc, vc
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def b2_once():
+        ev[0].record()
+        got = efta_attention(q, k, v, **kw)
+        ev[1].record()
+        return got
+    clean, b2_ms = one_call_device_ms(torch, b2_once, "efta_attention_kernel")
+    kernel_ms = ev[0].elapsed_time(ev[1])
+    held = b2_deepseek_held(torch, q, k, v, kw, clean, ev[2:])
+    t = mod.tiling(mod.DTYPES[q.dtype], 128, c.block_kv, 128,
+                   c.kv_stride(c.block_kv), c.out_stride(128))
+    b2_shape = list(q.shape)
+    del rec, cap, q, k, v, clean
+    res = {"dryrun": line, "b2_launches": n_b2,
+           "prefill_s": wall, "tokens_per_s": DEEPSEEK_SEQ / wall,
+           "peak_bytes": line["peak_card"], "seu": seu,
+           "b2": {"shape": b2_shape, "causal": True,
+                  "block_kv": cfg.ft.block_kv, "tiling": t._asdict(),
+                  "device_ms": b2_ms[0] if len(b2_ms) == 1 else None,
+                  "ms": kernel_ms,
+                  "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "bytes": nbytes, "flops": flops,
+                  "library_ms": sdpa_ms, "held": held,
+                  "max_abs_err": max(x["max_abs_err"] for x in [
+                      *held["clean"].values(), *held["seu"].values()]),
+                  "plain_ms_7_heads": held["plain_ms"]}}
+    del model, params, spec
+    free(torch)
+    return res
+
+
+def phase_b2_wide(torch, np, seed):
+    """Kernel B2 at the dry run's wide KV blocks: (a) against its plain
+    version and timed (``b2_wide_kernel``), (b) the tiling mirror against
+    the kernel's rule (``b2_wide_tiling``), (c) deepseek-coder-33b's 32k
+    prefill on it, held to the dry run (``b2_wide_deepseek``). Returns the
+    regimes for the kernels line."""
+    t0 = time.perf_counter()
+    cases = b2_wide_kernel(torch)
+    tiles = b2_wide_tiling()
+    ds = b2_wide_deepseek(torch, seed)
+    emit({"phase": "b2_wide", "ok": True, "phase_s": time.perf_counter() - t0,
+          "cases": cases, "tiling": tiles, "deepseek_prefill": ds})
+    regimes = {f"wide {k}": v for k, v in cases.items()}
+    regimes["deepseek-coder-33b prefill 32k"] = dict(
+        ds["b2"], launches=ds["b2_launches"],
+        launches_per="Model.prefill of 32,768 tokens, 2 layers")
+    return regimes
+
+
+# (B, H, Hkv, Sq, Skv, D, causal, block_kv, window): B2's narrow-path
+# regimes of earlier phases (gpt2's ring prefill buckets, the VLM's self
+# prefill at block_kv 64, bert-large's encoder, gemma3-1b's D 256 under its
+# 512 window, kimi-k2's D 112 heads)
+B2_NARROW_AB = {"gpt2_S512": (1, 12, 12, 512, 512, 64, True, 512, None),
+                "gpt2_S64": (1, 12, 12, 64, 64, 64, True, 512, None),
+                "vlm_self": (8, 32, 8, 512, 512, 128, True, 64, None),
+                "bert": (8, 16, 16, 512, 512, 64, False, 512, None),
+                "gemma3_w512": (1, 4, 1, 1024, 1024, 256, True, 512, 512),
+                "kimi_512": (1, 64, 8, 512, 512, 112, True, 512, None)}
+
+
+def phase_b2_narrow(torch, np, seed):
+    """B2 at ``B2_NARROW_AB`` in bf16 and f32: the profiler's device time
+    per launch (20 calls), and a hash of the clean and an EXP-faulted
+    output with both detection vectors. Only under ``--only b2_narrow``:
+    run in two checkouts in turns (this file copied into the other's root;
+    parent, change, change, parent), it holds one kernel to the other
+    (equal hashes and counts) and puts their times side by side."""
+    import hashlib
+    from repro_torch.core.efta import EFTAConfig
+    from repro_torch.kernels.efta_attention import efta_attention
+    res = {}
+    for name, (B, H, Hkv, Sq, Skv, D, causal, bkv, window) in \
+            B2_NARROW_AB.items():
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator().manual_seed(5)
+            q = torch.randn((B, H, Sq, D), generator=g).to(DEVICE, dt)
+            k = torch.randn((B, Hkv, Skv, D), generator=g).to(DEVICE, dt)
+            v = torch.randn((B, Hkv, Skv, D), generator=g).to(DEVICE, dt)
+            kw = dict(cfg=EFTAConfig(block_kv=bkv), causal=causal,
+                      window=window)
+            o, d = efta_attention(q, k, v, **kw)
+            of, df = efta_attention(q, k, v, fault=[
+                2, 0, 1, Sq - 1, 3, seu_bit("correct"), 1, 0], **kw)
+            h = hashlib.sha1(o.float().cpu().numpy().tobytes() +
+                             of.float().cpu().numpy().tobytes())
+            res[f"{name} {str(dt)[6:]}"] = {
+                "device_ms": device_ms(torch, lambda: efta_attention(
+                    q, k, v, **kw), 20, name="efta_attention_kernel"),
+                "hash": h.hexdigest()[:16], "detected": d.tolist(),
+                "detected_exp_seu": df.tolist()}
+    emit({"phase": "b2_narrow", "ok": True, "regimes": res})
 
 
 # ---------------------------------------------------------------------------
@@ -4206,7 +4627,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="comma list of phases to run after device and "
-                         "build (dist, vlm, train, dryrun, examples), for "
+                         "build (dist, vlm, train, dryrun, b2_wide, "
+                         "examples; b2_narrow runs only so), for "
                          "bring-up; prints no result line")
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase dist
@@ -4226,7 +4648,8 @@ def main(argv=None) -> int:
         only = {"dist": lambda torch, np, seed: phase_dist(torch, np, seed,
                                                            card),
                 "vlm": phase_vlm, "train": phase_train,
-                "dryrun": phase_dryrun,
+                "dryrun": phase_dryrun, "b2_wide": phase_b2_wide,
+                "b2_narrow": phase_b2_narrow,
                 "examples": lambda torch, np, seed: phase_examples(torch)}
         for name in args.only.split(","):
             only[name](torch, np, args.seed)
@@ -4247,6 +4670,7 @@ def main(argv=None) -> int:
     entry_b2["regimes"].update(phase_decoupled(torch))
     b1_regimes, b2_regimes = phase_kernel_regimes(torch)
     entry_b2["regimes"].update(b2_regimes)
+    entry_b2["regimes"].update(phase_b2_wide(torch, np, args.seed))
     # the VLM's B2 timings before phase 20's profiled windows: after them
     # its timed windows lost their records (seen on the card)
     entry_b2["regimes"].update(phase_vlm(torch, np, args.seed))

@@ -392,12 +392,88 @@ _ARGTYPES = ([ctypes.c_int]                        # dtype code
              + [ctypes.c_int] * 5                  # mode unified shadows
              #                                       max_groups
              + [ctypes.c_int] * 8                  # fault descriptor
+             + [ctypes.c_void_p, ctypes.c_int]     # workspace, its slots
              + [ctypes.c_void_p])                  # stream
 
 
 # 16-row groups (of 4 warps) per thread block at most; the C entry point
 # takes fewer where the query tile or shared memory is smaller
 _MAX_GROUPS = 2
+# the kernel's constants (csrc/efta_attention.cu): warps a 16-row group,
+# groups a thread block, fold segments of the narrow EXP pass, and the
+# shared memory a thread block may take on Hopper (227 KB)
+_WPG, _KERNEL_GROUPS, _MAX_G, _SMEM_LIMIT = 4, 2, 32, 232448
+# streaming multiprocessors of an H100 SXM: the meta route sizes the wide
+# path's persistent grid, and its workspace, as for that card
+H100_SMS = 132
+
+
+class Tiling(NamedTuple):
+    """The kernel's choice for one call's shapes: 16-row groups a thread
+    block, keys a streamed chunk, ring stages, thread blocks an SM, the
+    wide path (scores in a global workspace), the K-fold planes in the
+    workspace too, shared-memory bytes, workspace floats a slot."""
+
+    W: int
+    KC: int
+    ST: int
+    per_sm: int
+    wide: int
+    g_kf: int
+    smem: int
+    slot_floats: int
+
+
+def _slice_of(d: int) -> int:
+    return next((ds for ds in (64, 48, 32, 16) if d % ds == 0), 0)
+
+
+def _layout(W, KC, ST, D, Bc, skv, sout, esz, wide, g_kf):
+    """(shared-memory bytes, workspace floats a slot): ``make_layout``."""
+    TR = 16 * W
+    ldk = D + 8 if esz == 2 else D + 1
+    lds = Bc if wide else Bc + (skv if skv < 32 else 0)
+    lds += lds & 1
+    ldo, ldf = D + 1, D + 4
+    g_kf = bool(wide and g_kf)
+    slot = (2 * TR * lds + (2 * skv * ldf if g_kf else 0)) if wide else 0
+    parts = (ST * KC * ldk * esz, TR * ldk * esz,
+             0 if g_kf else 2 * skv * ldf * 4, 0 if wide else TR * lds * 4,
+             TR * ldo * 4, TR * skv * 4, 2 * KC * sout * 4,
+             4 * TR * sout * 4, 8 * TR * 4, W * _WPG * 8 * 4)
+    return sum((n + 15) & ~15 for n in parts), slot
+
+
+def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
+           s_out: int, max_groups: int = _MAX_GROUPS) -> Optional[Tiling]:
+    """The kernel's tiling of these shapes, or None where it takes none:
+    ``choose_tiles`` of ``csrc/efta_attention.cu``, in Python, so that the
+    meta route needs no build. The narrow layout (scores in shared memory)
+    wherever it fits: two thread blocks an SM before one, then the most
+    rows, the widest chunk, the deepest ring. Else the wide path: the
+    K-fold planes in shared memory before the workspace, then the widest
+    chunk first."""
+    Bc, D, skv, sout = block_kv, d, s_kv, s_out
+    if (block_q <= 0 or Bc % 16 or D % 16 or skv < 1 or Bc % skv
+            or sout <= 0 or D % sout or not _slice_of(D)):
+        return None
+    esz = 4 if dtype_code == 0 else 2
+    wmax = min(-(-block_q // 16), max_groups, _KERNEL_GROUPS)
+    ws = range(wmax, 0, -1)
+    order = []
+    if 2 <= skv <= 32 and not skv & (skv - 1) and Bc // skv <= _MAX_G:
+        order += [(w, kc, st, per_sm, 0, 0) for per_sm in (2, 1)
+                  for w in ws for kc in (64, 32, 16) for st in (3, 2)]
+    order += [(w, kc, st, per_sm, 1, g_kf) for g_kf in (0, 1)
+              for kc in (64, 32, 16) for per_sm in (2, 1) for w in ws
+              for st in (3, 2)]
+    for w, kc, st, per_sm, wide, g_kf in order:
+        if Bc % kc:
+            continue
+        smem, slot = _layout(w, kc, st, D, Bc, skv, sout, esz, wide, g_kf)
+        if smem <= _SMEM_LIMIT // per_sm:
+            return Tiling(w, kc, st, per_sm, wide, g_kf, smem, slot)
+    return None
 
 
 def _lib():
@@ -405,7 +481,8 @@ def _lib():
     if not getattr(lib, "_efta_bound", False):
         lib.efta_attention_launch.argtypes = _ARGTYPES
         lib.efta_attention_launch.restype = ctypes.c_int
-        lib.efta_attention_tiles.argtypes = [ctypes.c_int] * 7
+        lib.efta_attention_tiles.argtypes = ([ctypes.c_int] * 7
+                                             + [ctypes.POINTER(ctypes.c_int)])
         lib.efta_attention_tiles.restype = ctypes.c_int
         lib.efta_attention_error_string.argtypes = [ctypes.c_int]
         lib.efta_attention_error_string.restype = ctypes.c_char_p
@@ -413,12 +490,24 @@ def _lib():
     return lib
 
 
+def kernel_tiling(dtype_code: int, block_q: int, block_kv: int, d: int,
+                  s_kv: int, s_out: int,
+                  max_groups: int = _MAX_GROUPS) -> Optional[Tiling]:
+    """What the built kernel's C entry point ``efta_attention_tiles``
+    chooses for these shapes (None: no tiling); :func:`tiling` mirrors
+    it. Builds the kernel on first use."""
+    buf = (ctypes.c_int * 8)()
+    n_sub = _lib().efta_attention_tiles(dtype_code, block_q, block_kv, d,
+                                        s_kv, s_out, max_groups, buf)
+    return Tiling(*buf) if n_sub > 0 else None
+
+
 def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     """The kernel's route. A CUDA ``q`` launches the kernel. A meta ``q``
-    takes the same checks and makes and sums the same tensors, computing
-    nothing (the per-thread-block counts at the widest tiling,
-    ``16 * _MAX_GROUPS`` rows a block), so a dry run counts what the card
-    does."""
+    takes the same checks, the same tiling (:func:`tiling`, the C rule in
+    Python) and makes and sums the same tensors, the wide path's workspace
+    among them (a persistent grid as on an H100), computing nothing, so a
+    dry run counts what the card does and refuses what it refuses."""
     dtype = q.dtype
     if dtype not in DTYPES:
         raise TypeError(f"efta_attention kernel takes float32 or bfloat16, "
@@ -431,23 +520,28 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     BH, D = c.b * c.h, c.d
     launch = q.device.type == "cuda"
-    if launch:
-        lib = _lib()
-        # sub-tiles per query tile: a thread block takes 16 or 32 rows of
-        # one reference tile (0 = the kernel takes no tiling of these shapes)
-        n_sub = lib.efta_attention_tiles(DTYPES[dtype], c.block_q,
-                                         c.block_kv, D, c.s_kv, c.s_out,
-                                         _MAX_GROUPS)
-        if n_sub <= 0:
-            raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} "
-                             f"(stride {c.s_kv}) x head_dim {D} has no "
-                             f"tiling that fits one thread block")
-    else:
-        n_sub = -(-c.block_q // (16 * _MAX_GROUPS))
+    shapes = (DTYPES[dtype], c.block_q, c.block_kv, D, c.s_kv, c.s_out,
+              _MAX_GROUPS)
+    t = kernel_tiling(*shapes) if launch else tiling(*shapes)
+    if t is None:
+        raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} "
+                         f"(stride {c.s_kv}) x head_dim {D} has no "
+                         f"tiling that fits one thread block")
+    # sub-tiles per query tile: a thread block takes 16 or 32 rows of one
+    # reference tile
+    n_sub = -(-c.block_q // (16 * t.W))
     out = torch.empty_like(q)
     rep = torch.empty((BH, c.n_q * n_sub, 5), dtype=torch.int32,
                       device=q.device)
+    ws, slots = None, 0
+    if t.wide:
+        sms = (torch.cuda.get_device_properties(q.device)
+               .multi_processor_count if launch else H100_SMS)
+        slots = min(BH * c.n_q * n_sub, t.per_sm * sms)
+        ws = torch.empty((slots, t.slot_floats), dtype=torch.float32,
+                         device=q.device)
     if launch:
+        lib = _lib()
         eps1, eps2, eps3 = c.eps
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.efta_attention_launch(
@@ -458,7 +552,8 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
             c.scale, eps1, eps2, eps3, c.cap, c.cap * c.g_kv, c.cap - 1e-3,
             float(c.kv_len) + 1e-3,
             MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
-            int(cfg.shadow_rowmax), _MAX_GROUPS, *c.fault, stream)
+            int(cfg.shadow_rowmax), _MAX_GROUPS, *c.fault,
+            None if ws is None else ws.data_ptr(), slots, stream)
         if rc != 0:
             msg = lib.efta_attention_error_string(rc).decode()
             raise RuntimeError(f"efta_attention kernel launch failed: CUDA "

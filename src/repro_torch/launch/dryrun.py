@@ -293,13 +293,15 @@ def open_fake_world(world: int) -> None:
 
 def run_cell(arch, shape_name, *, multi_pod, out_dir: Optional[Path],
              cfg_override=None, tag="", inference_layout=False,
-             microbatches=1):
+             microbatches=1, mesh=None):
     """One cell: rank 0's inputs on meta, its call traced once under
     :func:`opcount`, the roofline terms. The default process group must
-    hold the production mesh's ranks (:func:`open_fake_world`). Writes
-    the JSON into ``out_dir`` (unless None) and returns it."""
+    hold the production mesh's ranks (:func:`open_fake_world`), or those
+    of ``mesh`` where one is given (a test's small mesh). Writes the JSON
+    into ``out_dir`` (unless None) and returns it."""
     shape = _shape(shape_name)
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    if mesh is None:
+        mesh = make_production_mesh(multi_pod=multi_pod)
     cfg = cfg_override or cell_config(arch, shape.name)
     spec = input_specs(cfg, shape, mesh, inference_layout=inference_layout)
     c, out, trace_s = trace_call(spec, mesh, microbatches=microbatches)
@@ -322,7 +324,7 @@ def run_cell(arch, shape_name, *, multi_pod, out_dir: Optional[Path],
                   spec["extra"]))
     result = {
         "arch": arch, "shape": shape.name,
-        "mesh": "2x16x16" if multi_pod else "16x16",
+        "mesh": "x".join(str(n) for n in mesh.ranks.shape),
         "n_devices": n_dev, "kind": shape.kind, "tag": tag,
         "trace_s": round(trace_s, 1),
         "flops_per_device": flops_dev,

@@ -433,3 +433,73 @@ def test_abft_matmul_on_the_card_matches_the_cpu(fn, dtype):
         if fn == "tensor_abft_matmul" or dtype == torch.float32:
             assert int(got[1]) == (fault is not None)
         _same((got[0].cpu(), got[1].cpu()), ref)
+
+
+# kernel B2 at wide KV blocks (its second instantiation: scores in a global
+# workspace, a persistent grid): the dry run's block_kv 2,048 (fold stride
+# 64) over two blocks, 4,096 (stride 128) with a ragged tail, and 32,768
+# (256 fold segments) at 16 query rows; 2 query heads on one KV head
+B2_WIDE = {"bkv2048_causal": dict(Sq=4096, Skv=4096, bkv=2048, causal=True),
+           "bkv4096_ragged": dict(Sq=256, Skv=8192, bkv=4096, causal=False,
+                                  kv_len=8092),
+           "bkv32768_sq16": dict(Sq=16, Skv=65536, bkv=32768, causal=False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B2_WIDE))
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+def test_contiguous_kernel_wide_blocks(regime, d, dtype, site):
+    from repro_torch.core.efta import reference_attention
+    from repro_torch.kernels import efta_attention as mod
+    dev = cuda_or_skip()
+    shape = dict(B2_WIDE[regime])
+    bkv, causal = shape.pop("bkv"), shape.pop("causal")
+    kv_len = shape.pop("kv_len", None)
+    q, k, v = _contig(dev, dtype, H=2, Hkv=1, D=d, seed=17, **shape)
+    cfg = EFTAConfig(mode="correct", block_kv=bkv)
+    assert mod.kernel_tiling(mod.DTYPES[dtype], min(128, shape["Sq"]), bkv,
+                             d, cfg.kv_stride(bkv), cfg.out_stride(d)).wide
+    row = shape["Sq"] - 1
+    fault = None if site is None else [int(site), 0, 1, row, 3, 30, 1, 0]
+    kw = dict(cfg=cfg, causal=causal, kv_len=kv_len, fault=fault)
+    got = efta_attention(q, k, v, **kw)
+    plain = efta_attention_torch(q, k, v, **kw)
+    out, det = got
+    ref = to_np(plain[0].float())
+    bound = _bound(plain[0])
+    if dtype == torch.bfloat16:
+        # the two may round a p next to a bf16 boundary apart (their f32
+        # scores differ in the last bits): 2^-7 (P |V|) more
+        bound = bound + 2.0 ** -7 * to_np(reference_attention(
+            q, k, v.float().abs(), causal=causal, kv_len=kv_len).float())
+    diff = np.abs(to_np(out.float()) - ref)
+    assert (diff <= bound).all(), f"max |kernel - plain| {diff.max():.3e}"
+    np.testing.assert_array_equal(to_np(det), to_np(plain[1]))
+    if site is None:
+        assert int(det.sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP, Site.GEMM1):
+        assert int(det.sum()) >= 1
+
+
+@pytest.mark.cuda
+def test_tiling_mirror_equals_the_kernels_rule():
+    """``tiling`` (the C rule in Python, which the meta route takes)
+    against the built kernel's ``efta_attention_tiles``, refusals
+    included."""
+    from repro_torch.kernels import efta_attention as mod
+    cuda_or_skip()
+    for code in (0, 1):
+        for bq in (16, 128):
+            for mg in (1, 2):
+                for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
+                    for d in (64, 72, 112, 128, 160, 256):
+                        for skv in (4, 8, 16, 32, 64, 128):
+                            if skv > bkv:
+                                continue
+                            shapes = (code, bq, bkv, d, skv,
+                                      EFTAConfig().out_stride(d), mg)
+                            assert mod.tiling(*shapes) == \
+                                mod.kernel_tiling(*shapes), shapes

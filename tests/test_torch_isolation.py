@@ -93,3 +93,37 @@ def test_every_example_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == names
+
+
+EXPERIMENTS = SRC.parent / "experiments_torch"
+
+
+def test_no_jax_or_reference_imports_in_experiments():
+    files = sorted(EXPERIMENTS.glob("*.py"))
+    assert [f.name for f in files] == ["hillclimb.py", "render_experiments.py"]
+    offenders = []
+    for f in files:
+        text = f.read_text()
+        for m in FORBIDDEN.finditer(text):
+            line = text[:m.start()].count("\n") + 1
+            offenders.append(f"{f.name}:{line}")
+    assert not offenders, offenders
+
+
+def test_experiments_import_without_jax():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        f"sys.path.insert(0, {str(EXPERIMENTS)!r})\n"
+        "for n in ('hillclimb', 'render_experiments'):\n"
+        "    assert callable(importlib.import_module(n).main)\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert 'jax' not in loaded and 'ml_dtypes' not in loaded\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
