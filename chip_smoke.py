@@ -193,24 +193,29 @@ dryrun   — the dry run (``repro_torch.launch.dryrun``) against the card:
              production cells of ``experiments/hillclimb.py`` (16x16,
              rank 0 of 256 fake ranks) through the dry run's CLI, side by
              side: dominant term, the three terms, peak, ``fits_80gb``.
-b2_wide  — kernel B2 at the dry run's wide KV blocks (its second
-             kernel: scores in a global workspace, a persistent
-             grid): (a) block_kv 2,048 (two blocks, causal), 4,096 (two
-             blocks, ragged kv_len) and 32,768 (Sq 16), at D 128 and 256,
-             f32 and bf16, 2 query heads on one KV head, against the plain
-             version clean and under each compute-site SEU (as phase 19's
-             regimes: counts equal, outputs within ``out_bound`` plus
-             ``p_rounding_slack``), timed with bound and SDPA; (b) the
+b2_wide  — kernel B2 at the dry run's wide KV blocks (past its narrow
+             layout: the cluster layout, a cluster of CTAs that share a
+             tile's rows and split its fold residues, and the workspace
+             layout, scores in a global workspace on a persistent grid):
+             (a) block_kv 2,048 (two blocks, causal) and 4,096 (two
+             blocks, ragged kv_len) on the cluster layout, 32,768 (Sq 16)
+             on the workspace one, at D 128 and 256, f32 and bf16, 2 query
+             heads on one KV head, against the plain version clean and
+             under each compute-site SEU (as phase 19's regimes: counts
+             equal, outputs within ``out_bound`` plus
+             ``p_rounding_slack``), timed with bound and SDPA, with each
+             case's tiling, cluster size, registers and spills; (b) the
              Python tiling mirror (the meta route's rule) against the
-             kernel's ``efta_attention_tiles`` on 2,112 shapes; (c)
-             deepseek-coder-33b at full width, 2 of 62 layers, bf16,
-             ``Model.prefill`` of 32,768 tokens under ``efta_pallas`` at
-             block_kv 2,048 (2 B2 launches): the dry run's one-rank
-             prediction equal to the card's ``opcount`` (FLOPs, ops,
-             launches) with the peak within 5%; time, tokens/s, peak, B2's
-             device time per launch, its bound, SDPA; that launch against
-             the plain version on the first and last KV heads' 7 query
-             heads, clean and under a GEMM I and an EXP SEU (counts equal,
+             kernel's ``efta_attention_tiles`` on 6,336 shapes (with and
+             without unified verification); (c) deepseek-coder-33b at
+             full width, 2 of 62 layers, bf16, ``Model.prefill`` of 32,768
+             tokens under ``efta_pallas`` at block_kv 2,048 (2 B2
+             launches, cluster layout): the dry run's one-rank prediction
+             equal to the card's ``opcount`` (FLOPs, ops, launches) with
+             the peak within 5%; time, tokens/s, peak, B2's device time
+             per launch, its bound, SDPA; that launch against the plain
+             version on the first and last KV heads' 7 query heads, clean
+             and under each compute-site SEU on head 52 (counts equal,
              within ``out_bound`` plus ``p_rounding_slack``, the other
              heads bit-equal to the clean call); one SEU per compute site
              gives the clean logits, detected at every site but GEMM II.
@@ -221,7 +226,8 @@ examples — the five ``examples_torch/`` scripts as subprocesses on the
              on the same inputs (head_dim 16, block 16: a regime no other
              phase reaches): outputs within the bound, counts equal.
 b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
-             earlier phases timed and hashed, to hold two checkouts'
+             earlier phases timed and hashed, and a hash of the narrow
+             kernel's SASS (``cuobjdump -sass``), to hold two checkouts'
              kernels to each other (``phase_b2_narrow``).
 
 dist     — distributed training on two gloo ranks that share the card
@@ -332,15 +338,23 @@ def phase_device(torch):
     return smi[0]
 
 
+# phase 2's ``ptxas_summary`` of each source, for the kernels line
+PTXAS = {}
+
+
 def ptxas_summary(log):
     """Registers, stack and spills per kernel instantiation, from nvcc's
-    ``-Xptxas -v`` output: {"bf16" | "f32" [+ " wide"]: "N registers,
-    ..."} (" wide": B2's ``efta_attention_kernel_wide``)."""
+    ``-Xptxas -v`` output: {"bf16" | "f32" [+ " workspace" | " cluster
+    D<=128" | " cluster D<=256"]: "N registers, ..."} (B2's
+    ``efta_attention_kernel_wide`` and ``..._kernel_cluster``, whose two
+    instantiations hold 4 and 8 GEMM II n-tiles a warp)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ("bf16" if "bfloat16" in ln else "f32") + (
-                " wide" if "kernel_wide" in ln else "")
+                " workspace" if "kernel_wide" in ln else
+                (" cluster D<=128" if "Li4E" in ln else " cluster D<=256")
+                if "kernel_cluster" in ln else "")
         elif name and ("spill" in ln or "registers" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":")[-1].strip()
                          ).strip()
@@ -355,6 +369,7 @@ def phase_build():
     logs = {p.repro_name: _build.finish_build(p) for p in procs}
     dt = time.perf_counter() - t0
     regs = {n: ptxas_summary(log) for n, log in logs.items()}
+    PTXAS.update(regs)
     emit({"phase": "build", "seconds": round(dt, 3), "sources": sorted(logs),
           "ptxas": regs})
 
@@ -1108,12 +1123,12 @@ def phase_kernel_b2(torch):
         def both(cfg, fault=None, c=c, q=q, k=k, v=v):
             """The kernel at each row-group choice of the case, and the
             plain version once."""
-            gots = {}
+            gots, default = {}, mod._MAX_GROUPS
             for ng in c["groups"]:
                 mod._MAX_GROUPS = ng
                 gots[ng] = efta_attention(q, k, v, cfg=cfg, fault=fault,
                                           **c["kw"])
-            mod._MAX_GROUPS = 2
+            mod._MAX_GROUPS = default
             ref = efta_attention_torch(q, k, v, cfg=cfg, fault=fault,
                                        **c["kw"])
             torch.cuda.synchronize()
@@ -1438,13 +1453,14 @@ def phase_numbers_b2(torch, np, ring, max_err):
         kw = dict(cap["kw"], fault=None)
         by_groups = {}
         mod = b2_module()
+        default = mod._MAX_GROUPS
         for ng in (2, 1):
             mod._MAX_GROUPS = ng
             by_groups[ng] = device_ms(
                 torch, lambda: efta_attention(cap["q"], cap["k"], cap["v"],
                                               **kw),
                 20, name="efta_attention_kernel")
-        mod._MAX_GROUPS = 2
+        mod._MAX_GROUPS = default
         per[S]["device_ms_by_max_groups"] = by_groups
     emit({"phase": "numbers_b2", "tokens_per_s": ring["tokens"] /
           clean["wall"], "wall_s": clean["wall"], "steps": len(step_ms),
@@ -3680,12 +3696,14 @@ def phase_dryrun(torch, np, seed):
 # phase b2_wide: kernel B2 at the dry run's wide KV blocks, deepseek-coder's
 # 32k prefill on it, and the dry run held to that prefill
 # ---------------------------------------------------------------------------
-# (name, block_kv, Sq, Skv, causal, kv_len): two KV blocks of 2,048 keys
-# (fold stride 64), two of 4,096 (stride 128) with a ragged tail, and
-# 32,768 keys a block (stride 128, 256 fold segments) at 16 query rows
-B2_WIDE_CASES = (("bkv2048 causal", 2048, 4096, 4096, True, None),
-                 ("bkv4096 ragged", 4096, 256, 8192, False, 8092),
-                 ("bkv32768 Sq16", 32768, 16, 65536, False, None))
+# (name, block_kv, Sq, Skv, causal, kv_len, layout): two KV blocks of 2,048
+# keys (fold stride 64) and two of 4,096 (stride 128) with a ragged tail on
+# the cluster layout, and 32,768 keys a block (stride 128, 256 fold
+# segments) at 16 query rows on the workspace layout
+B2_WIDE_CASES = (("bkv2048 causal", 2048, 4096, 4096, True, None, "cluster"),
+                 ("bkv4096 ragged", 4096, 256, 8192, False, 8092, "cluster"),
+                 ("bkv32768 Sq16", 32768, 16, 65536, False, None,
+                  "workspace"))
 DEEPSEEK = "deepseek-coder-33b"
 DEEPSEEK_LAYERS = 2      # of 62: one card holds the weights of a few
 DEEPSEEK_SEQ = 32768
@@ -3697,12 +3715,15 @@ def b2_wide_kernel(torch):
     at D 128 and 256 (2 query heads on one KV head), f32 and bf16, clean
     and under each compute-site SEU (``b2_regime_numbers``), each timed
     with its bound and SDPA; calls per timing window from one timed call,
-    so that each case takes about a second."""
+    so that each case takes about a second. Each case takes the layout
+    named (the built kernel's choice) and records its tiling, cluster size
+    and the instantiation's registers and spills (phase 2)."""
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.kernels.efta_attention import efta_attention
     mod = b2_module()
     res = {}
-    for ci, (name, bkv, sq, skv, causal, kv_len) in enumerate(B2_WIDE_CASES):
+    for ci, (name, bkv, sq, skv, causal, kv_len, layout) in enumerate(
+            B2_WIDE_CASES):
         for d in (128, 256):
             for dtype in (torch.float32, torch.bfloat16):
                 g = torch.Generator().manual_seed(2300 + 10 * ci + d)
@@ -3717,44 +3738,61 @@ def b2_wide_kernel(torch):
                 one = time_ms(torch, lambda: efta_attention(q, k, v, **kw),
                               reps=1, warmup=1)
                 n = max(2, min(50, int(300 / max(one, 1e-3))))
-                t = mod.tiling(mod.DTYPES[dtype], min(128, sq), bkv, d,
-                               cfg.kv_stride(bkv), cfg.out_stride(d))
-                res[f"{name} D{d} {str(dtype)[6:]}"] = dict(
+                t = mod.kernel_tiling(mod.DTYPES[dtype], min(128, sq), bkv, d,
+                                      cfg.kv_stride(bkv), cfg.out_stride(d))
+                check(t.layout == layout, f"B2 {name} D{d}: the {t.layout} "
+                      f"layout, not the {layout} one")
+                dt = str(dtype)[6:]
+                res[f"{name} D{d} {dt}"] = dict(
                     b2_regime_numbers(torch, {"q": q, "k": k, "v": v,
                                               "kw": kw}, p_rounding=True,
                                       reps=(n, max(2, n // 2)),
                                       ragged_sdpa=kv_len is not None),
                     block_kv=bkv, s_kv=cfg.kv_stride(bkv),
-                    tiling=t._asdict())
-                check(t.wide == 1, f"B2 {name} D{d}: not the wide path")
+                    tiling=t._asdict(), layout=t.layout, cluster=t.cluster,
+                    ptxas=b2_ptxas(dt, t.layout, d))
     return res
+
+
+def b2_ptxas(dtype, layout, d):
+    """Phase 2's registers, stack and spills of B2's instantiation for
+    ``dtype`` ("bfloat16" or "float32"), ``layout`` and head dim ``d``."""
+    key = ("bf16" if dtype == "bfloat16" else "f32") + (
+        "" if layout == "narrow" else " workspace" if layout == "workspace"
+        else " cluster D<=128" if d <= 128 else " cluster D<=256")
+    return PTXAS.get("efta_attention", {}).get(key)
 
 
 def b2_wide_tiling():
     """(b) The Python mirror of the tiling rule against the built kernel's
     ``efta_attention_tiles`` over block_kv x D x dtype x s_kv x block_q x
-    row groups, refused shapes among them: equal in every field."""
+    row groups x unified, refused shapes among them: equal in every
+    field."""
+    from collections import Counter
     from repro_torch.core.efta import EFTAConfig
     mod = b2_module()
-    n = wide = refused = 0
+    n, refused, layouts = 0, 0, Counter()
     for code in (0, 1):
         for bq in (16, 128):
-            for mg in (1, 2):
+            for mg in (1, 2, 4):
                 for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
                     for d in (64, 72, 112, 128, 160, 256):
                         for skv in (4, 8, 16, 32, 64, 128):
                             if skv > bkv:
                                 continue
-                            shapes = (code, bq, bkv, d, skv,
-                                      EFTAConfig().out_stride(d), mg)
-                            a, b = mod.tiling(*shapes), mod.kernel_tiling(
-                                *shapes)
-                            check(a == b, f"tiling {shapes}: mirror {a} vs "
-                                  f"kernel {b}")
-                            n += 1
-                            wide += bool(b and b.wide)
-                            refused += b is None
-    return {"shapes": n, "wide": wide, "refused": refused}
+                            for unified in (True, False):
+                                shapes = (code, bq, bkv, d, skv,
+                                          EFTAConfig().out_stride(d), mg,
+                                          unified)
+                                a = mod.tiling(*shapes)
+                                b = mod.kernel_tiling(*shapes)
+                                check(a == b, f"tiling {shapes}: mirror {a} "
+                                      f"vs kernel {b}")
+                                n += 1
+                                refused += b is None
+                                if b is not None:
+                                    layouts[b.layout] += 1
+    return {"shapes": n, "refused": refused, **layouts}
 
 
 def deepseek_config():
@@ -3791,17 +3829,18 @@ def one_call_device_ms(torch, fn, name):
 
 def b2_deepseek_held(torch, q, k, v, kw, clean, ev):
     """Deepseek's B2 launch (56 query heads on 8 KV heads, grp 7, 16 causal
-    KV blocks of 2,048, 57,344 (bh, tile) pairs on the persistent grid)
-    held to its plain version. The plain version holds (7, 256, 128, 2,048)
-    f32 temporaries for one KV head's query heads (all 56: 15 GB each), so
-    it runs a KV head at a time: the first and the last KV head against
-    those heads of the kernel's clean 56-head call (``clean``), and under
-    an SEU at GEMM I and at EXP (correct mode, top exponent bit, the last
-    row, the last KV block) on query head 3 of the last KV head, against
-    the kernel's 56-head call with that fault: counts and bad planes equal,
-    the heads within ``out_bound`` plus ``p_rounding_slack``, every other
-    head bit-equal to the clean call. Returns the errors, the counts and
-    the plain version's time on 7 heads (CUDA events ``ev``)."""
+    KV blocks of 2,048; on the cluster layout 28,672 clusters of 8 CTAs,
+    64 rows each) held to its plain version. The plain version holds (7,
+    256, 128, 2,048) f32 temporaries for one KV head's query heads (all
+    56: 15 GB each), so it runs a KV head at a time: the first and the
+    last KV head against those heads of the kernel's clean 56-head call
+    (``clean``), and under an SEU at each of the five compute sites
+    (correct mode, top exponent bit, the last row, the last KV block, key
+    or output column 3) on query head 3 of the last KV head, against the
+    kernel's 56-head call with that fault: counts equal (at least one but
+    at GEMM II), the heads within ``out_bound`` plus ``p_rounding_slack``,
+    every other head bit-equal to the clean call. Returns the errors, the
+    counts and the plain version's time on 7 heads (CUDA events ``ev``)."""
     from repro_torch.core.efta import reference_attention
     from repro_torch.core.fault import Site
     from repro_torch.kernels.efta_attention import (efta_attention,
@@ -3838,7 +3877,7 @@ def b2_deepseek_held(torch, q, k, v, kw, clean, ev):
     j, h = nkv - 1, min(3, grp - 1)
     rest = torch.ones(q.shape[1], dtype=torch.bool, device=q.device)
     rest[group(j)] = False
-    for site in (Site.GEMM1, Site.EXP):
+    for site in (Site.GEMM1, Site.ROWMAX, Site.EXP, Site.ROWSUM, Site.GEMM2):
         desc = [int(site), last_blk, 0, S - 1, 3, seu_bit("correct"), 1, 0]
         got = efta_attention(q, k, v, fault=[desc[0], desc[1], j * grp + h]
                              + desc[3:], **kw)
@@ -3846,8 +3885,9 @@ def b2_deepseek_held(torch, q, k, v, kw, clean, ev):
         torch.cuda.synchronize()
         err, ratio = b2_compare(torch, (got[0][:, group(j)], got[1]), ref,
                                 f"deepseek B2 {site.name}", slack(j))
-        check(int(got[1].sum()) >= 1, f"deepseek B2: {site.name} SEU not "
-              f"detected")
+        # a GEMM II flip goes uncounted (ROADMAP, standing item 2)
+        check(int(got[1].sum()) >= 1 or site == Site.GEMM2,
+              f"deepseek B2: {site.name} SEU not detected")
         check(torch.equal(got[0][:, rest], clean[0][:, rest]),
               f"deepseek B2 {site.name}: heads without the fault differ "
               f"from the clean call")
@@ -3968,13 +4008,17 @@ def b2_wide_deepseek(torch, seed):
     held = b2_deepseek_held(torch, q, k, v, kw, clean, ev[2:])
     t = mod.tiling(mod.DTYPES[q.dtype], 128, c.block_kv, 128,
                    c.kv_stride(c.block_kv), c.out_stride(128))
-    b2_shape = list(q.shape)
+    check(t.layout == "cluster", f"deepseek B2: the {t.layout} layout, not "
+          f"the cluster one")
+    b2_shape, q_dtype = list(q.shape), q.dtype
     del rec, cap, q, k, v, clean
     res = {"dryrun": line, "b2_launches": n_b2,
            "prefill_s": wall, "tokens_per_s": DEEPSEEK_SEQ / wall,
            "peak_bytes": line["peak_card"], "seu": seu,
            "b2": {"shape": b2_shape, "causal": True,
                   "block_kv": cfg.ft.block_kv, "tiling": t._asdict(),
+                  "layout": t.layout, "cluster": t.cluster,
+                  "ptxas": b2_ptxas(str(q_dtype)[6:], t.layout, 128),
                   "device_ms": b2_ms[0] if len(b2_ms) == 1 else None,
                   "ms": kernel_ms,
                   "bound_ms": max(t_bytes, t_ops),
@@ -4020,13 +4064,42 @@ B2_NARROW_AB = {"gpt2_S512": (1, 12, 12, 512, 512, 64, True, 512, None),
                 "kimi_512": (1, 64, 8, 512, 512, 112, True, 512, None)}
 
 
+def narrow_sass():
+    """Per instantiation of B2's narrow kernel (``efta_attention_kernel``,
+    not ``_wide`` or ``_cluster``) in the built library: the sha1 of its
+    ``cuobjdump -sass`` text, encodings included, with the anonymous
+    namespace's per-build ``_GLOBAL__N__<hash>_`` taken out, and its line
+    count."""
+    import hashlib
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass",
+                           str(_build.library_path("efta_attention"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", text)
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(ln)
+    return {n: {"sha1": hashlib.sha1("\n".join(body).encode())
+                .hexdigest()[:16], "lines": len(body)}
+            for n, body in funcs.items() if "efta_attention_kernelI" in n}
+
+
 def phase_b2_narrow(torch, np, seed):
     """B2 at ``B2_NARROW_AB`` in bf16 and f32: the profiler's device time
     per launch (20 calls), and a hash of the clean and an EXP-faulted
-    output with both detection vectors. Only under ``--only b2_narrow``:
-    run in two checkouts in turns (this file copied into the other's root;
-    parent, change, change, parent), it holds one kernel to the other
-    (equal hashes and counts) and puts their times side by side."""
+    output with both detection vectors; the narrow kernel's SASS hashes
+    (``narrow_sass``). Only under ``--only b2_narrow``: run in two
+    checkouts in turns (this file copied into the other's root; parent,
+    change, change, parent), it holds one kernel to the other (equal
+    hashes and counts) and puts their times side by side."""
     import hashlib
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.kernels.efta_attention import efta_attention
@@ -4050,7 +4123,8 @@ def phase_b2_narrow(torch, np, seed):
                     q, k, v, **kw), 20, name="efta_attention_kernel"),
                 "hash": h.hexdigest()[:16], "detected": d.tolist(),
                 "detected_exp_seu": df.tolist()}
-    emit({"phase": "b2_narrow", "ok": True, "regimes": res})
+    emit({"phase": "b2_narrow", "ok": True, "regimes": res,
+          "sass": narrow_sass()})
 
 
 # ---------------------------------------------------------------------------

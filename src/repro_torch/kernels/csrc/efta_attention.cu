@@ -71,20 +71,105 @@
 //     min/max, shadows read through opaque(), folds summed in segment order,
 //     -fmad=false.
 //
-// Wide KV blocks (the second kernel, WIDE = true). The layout above
-// holds a group's 16 x block_kv scores in shared memory, lanes fold s_kv <=
-// 32 columns of a row, and the EXP pass keeps g_kv <= 32 probabilities a
-// thread: block_kv up to 1,024. The reference kernel takes any block that
-// divides the sequence, and the dry run's cells use 2,048 (s_kv 64) and
-// 32,768 (s_kv 128, g_kv 256); at 2,048 keys a group's scores alone are
-// 128 KB. Where the layout above does not fit (or s_kv > 32, g_kv > 32):
+// Wide KV blocks. The layout above holds a group's 16 x block_kv scores in
+// shared memory, lanes fold s_kv <= 32 columns of a row, and the EXP pass
+// keeps g_kv <= 32 probabilities a thread: block_kv up to 1,024. The
+// reference kernel takes any block that divides the sequence, and the dry
+// run's cells use 2,048 (s_kv 64) and 32,768 (s_kv 128, g_kv 256); at 2,048
+// keys 64 rows of f32 scores are 512 KB, which no SM holds, and the check's
+// unit is the whole KV block (locate-and-correct needs a whole row of it
+// before the softmax). Two more layouts take such blocks.
+//
+// The cluster layout (efta_attention_kernel_cluster,
+// efta_attention_cluster.cuh), wherever it holds the shapes (g_kv <= 32,
+// s_kv a power of two, D <= 256, unified output verification). What bounds
+// it is the operations: at deepseek-coder-33b's 32k prefill (56 heads of
+// 128 on 8, causal, block_kv 2,048) 1.54e13 FLOP at 989 TFLOP/s, 15.6 ms;
+// its bytes (q, k, v, out once, 1.07 GB) take 0.32 ms. The stride-s_kv
+// fold sums column l * s_kv + i over l, so a fold residue i and all its
+// g_kv segments are a unit that needs no other: GEMM I's checksum against
+// Q fold(K)^T (fold(K)[i] reads only those keys), locate-and-correct and
+// the EXP product fold.
+//   * A cluster of n thread blocks (CTAs; 8 at 2,048 and 4,096 keys)
+//     shares one tile of 16 W query rows (64 at D 128 in bf16, 32 at D
+//     256). CTA `rank` owns the residues rank * s_kv / n .. + s_kv / n and
+//     loads only their keys (strips of s_kv / n consecutive keys every s_kv
+//     keys; 256 keys a CTA at 2,048), so its scores and p stay in its own
+//     shared memory, and so do its K folds: no global workspace, no round
+//     trip of a score off chip (the workspace layout sent each score
+//     through L2 eight to ten times).
+//   * Its row phases are the narrow layout's: lanes on (row, residue)
+//     pairs of one warp, g_kv scores a lane, xor shuffles over the
+//     residues; every warp of the CTA busy on its own 4 rows at once, not
+//     a row at a time, and no serial tail on one lane.
+//   * A row crosses CTAs three times, through distributed shared memory
+//     (barrier.cluster, then plain loads of mapa's addresses): the partial
+//     block max (every CTA combines the parts in one fixed order, so all
+//     hold the same m, and a ROWMAX SEU flips the same value everywhere);
+//     the partial rowsum and shadow rowsum (the SNVR term follows from the
+//     block max);
+//     and, once at the end, the partial O, O checksums and max|V|, which
+//     each CTA sums in rank order for its TR / n rows before the SNVR
+//     bound and the unified verify. Per-residue events (GEMM I, EXP) are
+//     counted by the owning CTA, per-row ones by rank 0 (ROWMAX) or by the
+//     CTA that finalizes the row (ROWSUM, output); a key-column SEU strikes
+//     the CTA that owns its residue, and a GEMM II SEU the sum of the
+//     partials (rank 0 adds the flip's change of it).
+//   * K and V are read once a KV block for the whole tile (64 rows a pass,
+//     against 32), in chunks of 128 keys through a ring of 2 or 3 slots
+//     that runs on across blocks (the next block's K is in flight during
+//     this block's V pass); V once for all of D, not once per 64-column
+//     slice. A producer warpgroup issues the copies (cp.async) and does
+//     nothing else; each slot has two mbarriers, `full` (its copies have
+//     landed) and `empty` (every consumer warp is done with it), so a
+//     consumer waits only for the chunk it reads. setmaxnreg leaves the
+//     producer 32 registers a thread and the 512 consumer threads 112
+//     (one producer warp alone would put five warps on one SM
+//     sub-partition and cap every thread at 96). The producer passes each
+//     cluster barrier before the first slot whose release follows it.
+//   * bf16 chunks and Q lie in shared memory as 8 x 8 core matrices (128
+//     contiguous bytes each), wgmma's layout without swizzle, which
+//     ldmatrix also reads without bank conflicts. Where a tile has 64
+//     rows, GEMM I is wgmma m64 x KC / 4 keys a warpgroup, Q and K
+//     straight from shared memory, and GEMM II a partial P_own V_own on
+//     wgmma m64 x D / 4 columns a warpgroup (D 64, 128, 256), p from
+//     registers and V from shared memory as it stands (N-major), each
+//     chunk's products back to back in a loop of compile-time length (a
+//     branch among them makes ptxas serialize them); else mma.sync, 4
+//     n-tiles of 8 a warp, V through ldmatrix.trans.
+//   * In bf16 the checksum products run on the tensor cores too, each at
+//     (about) f32's precision: the K folds (K^T times a matrix of 1s and
+//     segment weights: exact products, f32 sums), GEMM I's checksums Q
+//     fold(K)^T (TF32: Q is TF32 exactly, fold(K) split into high and low
+//     parts), the V column checksums (V times the fold's 0 / weight
+//     matrix) and the O-checksum products (p and the V checksums split
+//     into high and low bf16 parts: hi hi + hi lo + lo hi, about 2^-15 of
+//     each product). The f32 instantiation keeps FMAs for all of them.
+//   * The EXP pass keeps a residue's g_kv probabilities in a per-thread
+//     array, and a row whose block lies wholly inside its mask computes no
+//     mask; the product-fold check and the exact recompute backstop stay,
+//     as in the reference. Indices divide by a multiply-high (a predicated
+//     division path costs issue slots in every loop), NaN-propagating
+//     min / max are single instructions, and the kernel is instantiated
+//     for D <= 128 and D <= 256 so that GEMM II's accumulators hold no
+//     unused registers.
+//   * The tiles run heaviest first (causal: the last query tiles), so the
+//     short tiles fill the tail of the launch.
+// What is left (PERF.md section 6 has the measured phase split): the row
+// phases run latency-bound on the 16 consumer warps that 64 rows and 227
+// KB of shared memory allow an SM, between barriers that every warp of
+// the cluster must reach.
+// The workspace layout (the second kernel, WIDE = true), for what the
+// cluster layout does not hold (g_kv > 32, as at 32,768 keys, or the
+// per-step output check, whose count follows the summation order that a
+// split over CTAs changes):
 //   * each thread block owns one slot of a global workspace that the
 //     wrapper allocates: the group's scores (then p) and the raw
 //     probabilities of the EXP pass, 16 x block_kv floats each, plus the
 //     K-fold planes where they do not fit shared memory either. A
 //     persistent grid (at most the thread blocks that fit the card at
 //     once) walks the (bh, tile) pairs, so the workspace is slots x slot
-//     bytes, not tiles x slot bytes, and mostly stays in the 50 MB L2;
+//     bytes, not tiles x slot bytes;
 //   * the row phases take one row at a time with the whole warp: a lane
 //     owns fold columns i = lane + 32 t of it, and lanes combine with
 //     32-wide xor shuffles;
@@ -92,17 +177,42 @@
 //     the fold product, and its second walk reads back exactly the values
 //     that product checked (nothing is recomputed unchecked: the recompute
 //     is the correction, as in the reference).
-// The check's unit stays the reference's KV block. Every tiling the layout
-// above fits keeps the first kernel (same outputs and counts). At
-// deepseek-coder's 32k prefill (56 heads of 128, block_kv 2,048) the least
-// time is the operations', 1.5e13 FLOP; as in the first layout the scalar
-// row phases, here with the workspace's round trips through L2, set the
-// time instead (PERF.md section 6 has it beside the bound).
+// The check's unit stays the reference's KV block in all three layouts.
+// Every tiling the first layout fits keeps the first kernel (same outputs
+// and counts). PERF.md section 6 has each layout's times beside the bound.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
 
 #include "efta_common.cuh"
+
+// Phase clocks, a build option for measurement only (-DEFTA_PHASE_CLOCKS;
+// the library that chip_smoke.py and the wrapper build never sets it):
+// thread 0 of every thread block adds the clock64() cycles between marks
+// to efta_phase_clk[k] (k: setup, K pass, fold check, max, EXP, V pass,
+// block tail, finalize, cluster waits, K-chunk waits, V-chunk waits, V
+// checksums and O-checksum products; the cluster layout's marks).
+// tools/b2_phase_split.py builds it and reads the split.
+#ifdef EFTA_PHASE_CLOCKS
+__device__ unsigned long long efta_phase_clk[16];
+#define PHASE_INIT                 \
+  long long ph_t = clock64();      \
+  long long ph_acc[16] = {};
+#define PHASE_MARK(k)                    \
+  if (threadIdx.x == 0) {                \
+    const long long ph_n = clock64();    \
+    ph_acc[k] += ph_n - ph_t;            \
+    ph_t = ph_n;                         \
+  }
+#define PHASE_FLUSH                                                  \
+  if (threadIdx.x == 0)                                              \
+    for (int ph_k = 0; ph_k < 16; ++ph_k)                            \
+      atomicAdd(&efta_phase_clk[ph_k], (unsigned long long)ph_acc[ph_k]);
+#else
+#define PHASE_INIT
+#define PHASE_MARK(k)
+#define PHASE_FLUSH
+#endif
 
 namespace {
 
@@ -198,8 +308,11 @@ int slice_of(int D) {
   return 0;
 }
 
+#include "efta_attention_cluster.cuh"
+
+// cl: CTAs a cluster of the cluster layout, 0 for the other two
 struct Tiling {
-  int W, KC, ST, per_sm, wide, g_kf;
+  int W, KC, ST, per_sm, wide, g_kf, cl;
 };
 
 // row groups per block (2 or 1, each of 16 rows and WPG warps), keys per
@@ -211,9 +324,17 @@ struct Tiling {
 // chunk first: at block_kv 2,048 its barrier-separated chunk steps (a K
 // pass and D / 64 V passes over block_kv / KC chunks each), more than the
 // warps an SM, set the time.
+// Past the first layout, the cluster layout wherever it holds the shapes:
+// unified output verification (the per-step check's count follows the
+// summation order, which the split over CTAs changes), s_kv a power of two
+// split over a portable cluster of 8, 4 or 2 CTAs with at most 32
+// residues a CTA, g_kv <= 32, D <= 256; chunks of 128 or 64 keys before
+// narrower ones, then the most rows, the widest chunk, the most CTAs (the
+// fewest keys a CTA) and the deepest ring.
+// Else (g_kv > 32 as at 32,768 keys, or unified = 0) the workspace path.
 // python mirror: repro_torch/kernels/efta_attention.py::tiling
 bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
-                  int max_groups, Tiling* t) {
+                  int max_groups, int unified, Tiling* t) {
   if (Bc % 16 || D % 16 || skv < 1 || Bc % skv || sout <= 0 || D % sout ||
       slice_of(D) == 0)
     return false;
@@ -224,7 +345,7 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
     if (Bc % kc || make_layout(w, kc, st, D, Bc, skv, sout, esz, wide,
                                g_kf).total > SMEM_LIMIT / per_sm)
       return false;
-    *t = Tiling{w, kc, st, per_sm, wide, g_kf};
+    *t = Tiling{w, kc, st, per_sm, wide, g_kf, 0};
     return true;
   };
   if (skv >= 2 && skv <= 32 && !(skv & (skv - 1)) && Bc / skv <= MAX_G)
@@ -233,6 +354,24 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
         for (int kc = 64; kc >= 16; kc /= 2)
           for (int st = 3; st >= 2; --st)
             if (fits(w, kc, st, per_sm, 0, 0)) return true;
+  int wcl = (block_q + 15) / 16;
+  if (wcl > max_groups) wcl = max_groups;
+  if (wcl > CL_GROUPS) wcl = CL_GROUPS;
+  if (unified && skv >= 2 && !(skv & (skv - 1)) && Bc / skv <= MAX_G &&
+      D <= 32 * CL_NT)
+    for (int wide_kc = 1; wide_kc >= 0; --wide_kc)
+      for (int w = wcl; w >= 1; --w)
+        for (int kc = wide_kc ? 128 : 32; kc >= (wide_kc ? 64 : 16);
+             kc /= 2)
+          for (int n = 8; n >= 2; n /= 2)
+            for (int st = 3; st >= 2; --st) {
+              if (skv % n || skv / n > 32 || (Bc / n) % kc ||
+                  make_cluster_layout(w, kc, st, D, Bc, skv, sout, esz, n)
+                          .total > SMEM_LIMIT)
+                continue;
+              *t = Tiling{w, kc, st, 1, 0, 0, n};
+              return true;
+            }
   for (int g_kf = 0; g_kf <= 1; ++g_kf)
     for (int kc = 64; kc >= 16; kc /= 2)
       for (int per_sm = 2; per_sm >= 1; --per_sm)
@@ -288,33 +427,83 @@ cudaError_t dispatch(const Params& p, int wide, int slots,
               : launch<T, false>(p, slots, stream);
 }
 
+// the cluster layout: n CTAs for each (bh, tile) pair, cluster (n, 1, 1);
+// refused (the error returned) where no cluster of that shape fits the card
+template <typename T>
+cudaError_t launch_cluster(const CParams& c, cudaStream_t stream) {
+  const size_t bytes = c.L.total;
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  void (*kernel)(const CParams) = c.P.D <= 128
+                                      ? efta_attention_kernel_cluster<T, 4>
+                                      : efta_attention_kernel_cluster<T, 8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c.n * c.P.BH * c.P.n_q * c.P.n_sub);
+  cfg.blockDim = dim3(32 * WPG * c.P.W + CL_PRODUCER);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c.n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters <= 0) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, c);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Thread blocks per reference query tile (block_q rows) for these shapes,
-// or 0 when no tiling fits one SM's shared memory. dtype as below. With
-// `tiling` (8 ints, or NULL) also the choice: {row groups W, keys a chunk,
-// ring stages, thread blocks an SM, wide path, K folds in the workspace,
-// shared-memory bytes, workspace floats a slot}.
+// or 0 when no tiling fits one SM's shared memory. dtype as below; unified
+// as the launch's. With `tiling` (9 ints, or NULL) also the choice: {row
+// groups W, keys a chunk, ring stages, thread blocks an SM, wide path, K
+// folds in the workspace, shared-memory bytes, workspace floats a slot,
+// CTAs a cluster (0: not the cluster layout)}.
 int efta_attention_tiles(int dtype, int block_q, int block_kv, int D,
-                         int s_kv, int s_out, int max_groups, int* tiling) {
+                         int s_kv, int s_out, int max_groups, int unified,
+                         int* tiling) {
   Tiling t;
   const int esz = dtype == 0 ? 4 : 2;
   if (block_q <= 0 || !choose_tiles(block_q, block_kv, D, s_kv, s_out, esz,
-                                    max_groups, &t))
+                                    max_groups, unified, &t))
     return 0;
   if (tiling) {
     const Layout L = make_layout(t.W, t.KC, t.ST, D, block_kv, s_kv, s_out,
                                  esz, t.wide, t.g_kf);
-    const int v[8] = {t.W, t.KC, t.ST, t.per_sm, t.wide, t.g_kf,
-                      (int)L.total,
+    const int smem =
+        t.cl ? (int)make_cluster_layout(t.W, t.KC, t.ST, D, block_kv, s_kv,
+                                        s_out, esz, t.cl).total
+             : (int)L.total;
+    const int v[9] = {t.W, t.KC, t.ST, t.per_sm, t.wide, t.g_kf, smem,
                       t.wide ? (int)make_slot(L, t.W, s_kv, t.g_kf).floats
-                             : 0};
-    for (int i = 0; i < 8; ++i) tiling[i] = v[i];
+                             : 0,
+                      t.cl};
+    for (int i = 0; i < 9; ++i) tiling[i] = v[i];
   }
-  return (block_q + 16 * t.W - 1) / (16 * t.W);
+  return (block_q + 16 * t.W - 1) / (16 * t.W) * (t.cl ? t.cl : 1);
 }
+
+#ifdef EFTA_PHASE_CLOCKS
+// the phase clocks' 16 sums (cycles), then zeroed
+int efta_attention_phase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, efta_phase_clk,
+                                         16 * sizeof(unsigned long long));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(efta_phase_clk, zero, sizeof(zero));
+}
+#endif
 
 const char* efta_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -323,10 +512,12 @@ const char* efta_attention_error_string(int code) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out). q and out are
 // (BH, Sq, D), k and v (BH / grp, Skv, D), all contiguous device arrays;
 // rep is (BH, n_q * tiles, 5) int32. max_groups caps the 16-row groups per
-// thread block (the wrapper passes 2). Where the tiling takes the wide path,
-// ws holds `slots` workspace slots (efta_attention_tiles gives the floats a
-// slot) and the grid is `slots` thread blocks; else both are unused. The
-// launch goes on `stream`.
+// thread block (the wrapper passes 4; the first two layouts take at most
+// 2). Where the tiling takes the wide path, ws holds `slots` workspace slots
+// (efta_attention_tiles gives the floats a slot) and the grid is `slots`
+// thread blocks; else both are unused: the cluster layout allocates
+// nothing, and rep then holds a row of counts for each CTA of a tile's
+// cluster. The launch goes on `stream`.
 int efta_attention_launch(int dtype, const void* q, const void* k,
                           const void* v, void* out, void* rep, int BH,
                           int grp, int Sq, int Skv, int D, int block_q,
@@ -364,7 +555,8 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   p.window = window;
   const int esz = dtype == 0 ? 4 : 2;
   Tiling t;
-  if (!choose_tiles(block_q, block_kv, D, s_kv, s_out, esz, max_groups, &t))
+  if (!choose_tiles(block_q, block_kv, D, s_kv, s_out, esz, max_groups,
+                    unified, &t))
     return (int)cudaErrorInvalidValue;
   p.W = t.W;
   p.KC = t.KC;
@@ -375,9 +567,10 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   p.ws = (float*)ws;
   p.S = make_slot(p.L, p.W, s_kv, t.wide && t.g_kf);
   p.n_sub = (block_q + 16 * p.W - 1) / (16 * p.W);
-  if (t.wide ? (ws == nullptr || slots <= 0 ||
-                (long long)BH * n_q * p.n_sub > 0x7fffffff)
-             : (long long)n_q * p.n_sub > 65535)
+  if (t.cl ? (long long)t.cl * BH * n_q * p.n_sub > 0x7fffffff
+           : t.wide ? (ws == nullptr || slots <= 0 ||
+                       (long long)BH * n_q * p.n_sub > 0x7fffffff)
+                    : (long long)n_q * p.n_sub > 65535)
     return (int)cudaErrorInvalidValue;
   p.scale = scale;
   p.eps1 = eps1;
@@ -394,6 +587,15 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   const int f[8] = {f0, f1, f2, f3, f4, f5, f6, f7};
   for (int i = 0; i < 8; ++i) p.fault[i] = f[i];
   cudaStream_t s = (cudaStream_t)stream;
+  if (t.cl) {
+    CParams c;
+    c.P = p;
+    c.L = make_cluster_layout(t.W, t.KC, t.ST, D, block_kv, s_kv, s_out, esz,
+                              t.cl);
+    c.n = t.cl;
+    return (int)(dtype == 0 ? launch_cluster<float>(c, s)
+                            : launch_cluster<__nv_bfloat16>(c, s));
+  }
   const cudaError_t err =
       dtype == 0 ? dispatch<float>(p, t.wide, slots, s)
                  : dispatch<__nv_bfloat16>(p, t.wide, slots, s);

@@ -398,11 +398,14 @@ _ARGTYPES = ([ctypes.c_int]                        # dtype code
 
 # 16-row groups (of 4 warps) per thread block at most; the C entry point
 # takes fewer where the query tile or shared memory is smaller
-_MAX_GROUPS = 2
+_MAX_GROUPS = 4
 # the kernel's constants (csrc/efta_attention.cu): warps a 16-row group,
-# groups a thread block, fold segments of the narrow EXP pass, and the
-# shared memory a thread block may take on Hopper (227 KB)
-_WPG, _KERNEL_GROUPS, _MAX_G, _SMEM_LIMIT = 4, 2, 32, 232448
+# groups a thread block of the narrow and workspace layouts and of the
+# cluster layout, fold segments of the EXP pass's per-thread array, the
+# GEMM II n-tiles a warp of the cluster layout (D <= 256), and the shared
+# memory a thread block may take on Hopper (227 KB)
+_WPG, _KERNEL_GROUPS, _CL_GROUPS, _MAX_G, _CL_NT, _SMEM_LIMIT = (
+    4, 2, 4, 32, 8, 232448)
 # streaming multiprocessors of an H100 SXM: the meta route sizes the wide
 # path's persistent grid, and its workspace, as for that card
 H100_SMS = 132
@@ -411,8 +414,9 @@ H100_SMS = 132
 class Tiling(NamedTuple):
     """The kernel's choice for one call's shapes: 16-row groups a thread
     block, keys a streamed chunk, ring stages, thread blocks an SM, the
-    wide path (scores in a global workspace), the K-fold planes in the
-    workspace too, shared-memory bytes, workspace floats a slot."""
+    workspace path (scores in a global workspace), the K-fold planes in the
+    workspace too, shared-memory bytes, workspace floats a slot, and the
+    thread blocks a cluster of the cluster layout (0: another layout)."""
 
     W: int
     KC: int
@@ -422,6 +426,13 @@ class Tiling(NamedTuple):
     g_kf: int
     smem: int
     slot_floats: int
+    cluster: int
+
+    @property
+    def layout(self) -> str:
+        """"narrow", "cluster" or "workspace"."""
+        return ("cluster" if self.cluster else
+                "workspace" if self.wide else "narrow")
 
 
 def _slice_of(d: int) -> int:
@@ -444,15 +455,37 @@ def _layout(W, KC, ST, D, Bc, skv, sout, esz, wide, g_kf):
     return sum((n + 15) & ~15 for n in parts), slot
 
 
+def _cluster_layout(W, KC, ST, D, Bc, skv, sout, esz, n) -> int:
+    """Shared-memory bytes of one CTA of the cluster layout:
+    ``make_cluster_layout``."""
+    TR, rc, kc = 16 * W, skv // n, Bc // n
+    rpc = TR // n
+    ldk = D if esz == 2 else D + 1  # bf16: 8 x 8 core matrices, unpadded
+    lds = (kc + (rc if rc < 32 else 0) + 3) & ~3
+    ldo, ldf = D + 1, D + 4
+    parts = (ST * KC * ldk * esz, TR * ldk * esz, 2 * rc * ldf * 4,
+             4 * max(TR * lds, rpc * ldo + 2 * rpc * sout), TR * ldo * 4,
+             (2 if esz == 2 else 1) * TR * rc * 4,
+             (2 * KC * (((2 * sout + 7) & ~7) + 8) * 2 if esz == 2
+              else 2 * KC * sout * 4), 4 * TR * sout * 4, 8 * TR * 4,
+             (3 * TR + 2) * 4, W * _WPG * 8 * 4, 2 * ST * 8)
+    return sum((n + 15) & ~15 for n in parts)
+
+
 def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
-           s_out: int, max_groups: int = _MAX_GROUPS) -> Optional[Tiling]:
+           s_out: int, max_groups: int = _MAX_GROUPS,
+           unified: bool = True) -> Optional[Tiling]:
     """The kernel's tiling of these shapes, or None where it takes none:
     ``choose_tiles`` of ``csrc/efta_attention.cu``, in Python, so that the
     meta route needs no build. The narrow layout (scores in shared memory)
     wherever it fits: two thread blocks an SM before one, then the most
-    rows, the widest chunk, the deepest ring. Else the wide path: the
-    K-fold planes in shared memory before the workspace, then the widest
-    chunk first."""
+    rows, the widest chunk, the deepest ring. Else the cluster layout
+    where it holds the shapes (``unified``, ``s_kv`` a power of two over
+    8, 4 or 2 CTAs with at most 32 residues a CTA, ``g_kv`` <= 32, D <=
+    256): chunks of 128 or 64 keys before narrower ones, then the most
+    rows, the widest chunk, the most CTAs, the deepest ring. Else the
+    workspace path: the K-fold planes in shared memory before the
+    workspace, then the widest chunk first."""
     Bc, D, skv, sout = block_kv, d, s_kv, s_out
     if (block_q <= 0 or Bc % 16 or D % 16 or skv < 1 or Bc % skv
             or sout <= 0 or D % sout or not _slice_of(D)):
@@ -460,28 +493,52 @@ def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
     esz = 4 if dtype_code == 0 else 2
     wmax = min(-(-block_q // 16), max_groups, _KERNEL_GROUPS)
     ws = range(wmax, 0, -1)
-    order = []
     if 2 <= skv <= 32 and not skv & (skv - 1) and Bc // skv <= _MAX_G:
-        order += [(w, kc, st, per_sm, 0, 0) for per_sm in (2, 1)
-                  for w in ws for kc in (64, 32, 16) for st in (3, 2)]
-    order += [(w, kc, st, per_sm, 1, g_kf) for g_kf in (0, 1)
-              for kc in (64, 32, 16) for per_sm in (2, 1) for w in ws
-              for st in (3, 2)]
-    for w, kc, st, per_sm, wide, g_kf in order:
-        if Bc % kc:
-            continue
-        smem, slot = _layout(w, kc, st, D, Bc, skv, sout, esz, wide, g_kf)
-        if smem <= _SMEM_LIMIT // per_sm:
-            return Tiling(w, kc, st, per_sm, wide, g_kf, smem, slot)
+        for w, kc, st, per_sm in [(w, kc, st, per_sm) for per_sm in (2, 1)
+                                  for w in ws for kc in (64, 32, 16)
+                                  for st in (3, 2)]:
+            if Bc % kc:
+                continue
+            smem, _ = _layout(w, kc, st, D, Bc, skv, sout, esz, 0, 0)
+            if smem <= _SMEM_LIMIT // per_sm:
+                return Tiling(w, kc, st, per_sm, 0, 0, smem, 0, 0)
+    wcl = min(-(-block_q // 16), max_groups, _CL_GROUPS)
+    if (unified and skv >= 2 and not skv & (skv - 1)
+            and Bc // skv <= _MAX_G and D <= 32 * _CL_NT):
+        for kcs in ((128, 64), (32, 16)):
+            for w in range(wcl, 0, -1):
+                for kc in kcs:
+                    for n in (8, 4, 2):
+                        for st in (3, 2):
+                            if skv % n or skv // n > 32 or (Bc // n) % kc:
+                                continue
+                            smem = _cluster_layout(w, kc, st, D, Bc, skv,
+                                                   sout, esz, n)
+                            if smem <= _SMEM_LIMIT:
+                                return Tiling(w, kc, st, 1, 0, 0, smem, 0,
+                                              n)
+    for g_kf in (0, 1):
+        for kc in (64, 32, 16):
+            for per_sm in (2, 1):
+                for w in ws:
+                    for st in (3, 2):
+                        if Bc % kc:
+                            continue
+                        smem, slot = _layout(w, kc, st, D, Bc, skv, sout,
+                                             esz, 1, g_kf)
+                        if smem <= _SMEM_LIMIT // per_sm:
+                            return Tiling(w, kc, st, per_sm, 1, g_kf, smem,
+                                          slot, 0)
     return None
 
 
-def _lib():
-    lib = _build.load("efta_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry points' argument and result types on a loaded
+    ``efta_attention`` library."""
     if not getattr(lib, "_efta_bound", False):
         lib.efta_attention_launch.argtypes = _ARGTYPES
         lib.efta_attention_launch.restype = ctypes.c_int
-        lib.efta_attention_tiles.argtypes = ([ctypes.c_int] * 7
+        lib.efta_attention_tiles.argtypes = ([ctypes.c_int] * 8
                                              + [ctypes.POINTER(ctypes.c_int)])
         lib.efta_attention_tiles.restype = ctypes.c_int
         lib.efta_attention_error_string.argtypes = [ctypes.c_int]
@@ -490,24 +547,30 @@ def _lib():
     return lib
 
 
+def _lib():
+    return bind(_build.load("efta_attention"))
+
+
 def kernel_tiling(dtype_code: int, block_q: int, block_kv: int, d: int,
-                  s_kv: int, s_out: int,
-                  max_groups: int = _MAX_GROUPS) -> Optional[Tiling]:
+                  s_kv: int, s_out: int, max_groups: int = _MAX_GROUPS,
+                  unified: bool = True) -> Optional[Tiling]:
     """What the built kernel's C entry point ``efta_attention_tiles``
     chooses for these shapes (None: no tiling); :func:`tiling` mirrors
     it. Builds the kernel on first use."""
-    buf = (ctypes.c_int * 8)()
+    buf = (ctypes.c_int * 9)()
     n_sub = _lib().efta_attention_tiles(dtype_code, block_q, block_kv, d,
-                                        s_kv, s_out, max_groups, buf)
+                                        s_kv, s_out, max_groups,
+                                        int(unified), buf)
     return Tiling(*buf) if n_sub > 0 else None
 
 
 def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     """The kernel's route. A CUDA ``q`` launches the kernel. A meta ``q``
     takes the same checks, the same tiling (:func:`tiling`, the C rule in
-    Python) and makes and sums the same tensors, the wide path's workspace
-    among them (a persistent grid as on an H100), computing nothing, so a
-    dry run counts what the card does and refuses what it refuses."""
+    Python) and makes and sums the same tensors, the workspace path's
+    workspace among them (a persistent grid as on an H100; the other two
+    layouts allocate none), computing nothing, so a dry run counts what the
+    card does and refuses what it refuses."""
     dtype = q.dtype
     if dtype not in DTYPES:
         raise TypeError(f"efta_attention kernel takes float32 or bfloat16, "
@@ -521,15 +584,15 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     BH, D = c.b * c.h, c.d
     launch = q.device.type == "cuda"
     shapes = (DTYPES[dtype], c.block_q, c.block_kv, D, c.s_kv, c.s_out,
-              _MAX_GROUPS)
+              _MAX_GROUPS, bool(cfg.unified))
     t = kernel_tiling(*shapes) if launch else tiling(*shapes)
     if t is None:
         raise ValueError(f"efta_attention kernel: block_kv {c.block_kv} "
                          f"(stride {c.s_kv}) x head_dim {D} has no "
                          f"tiling that fits one thread block")
-    # sub-tiles per query tile: a thread block takes 16 or 32 rows of one
-    # reference tile
-    n_sub = -(-c.block_q // (16 * t.W))
+    # thread blocks per query tile: one takes 16, 32 or 64 rows of one
+    # reference tile; the cluster layout's tile rows take a cluster of them
+    n_sub = -(-c.block_q // (16 * t.W)) * max(t.cluster, 1)
     out = torch.empty_like(q)
     rep = torch.empty((BH, c.n_q * n_sub, 5), dtype=torch.int32,
                       device=q.device)

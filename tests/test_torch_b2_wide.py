@@ -13,9 +13,12 @@ the kernel's first layout.
   second block is skipped and the SEU strikes the first.
 * The meta route's tiling: ``tiling`` mirrors the C rule (``choose_tiles``
   of ``csrc/efta_attention.cu``; ``tests/test_torch_cuda.py`` compares the
-  two on the card), takes 2,048 at D 128 on the wide path and refuses what
-  the kernel refuses, with the CUDA route's message; the meta route
-  allocates the wide path's workspace as the card does.
+  two on the card), takes 2,048 and 4,096 at D 64-256 on the cluster layout
+  (a cluster of thread blocks shares a tile's rows, each its fold
+  residues), 32,768 and the per-step output check on the workspace layout,
+  and refuses what the kernel refuses, with the CUDA route's message; the
+  meta route allocates as the card does: no workspace on the cluster
+  layout, a persistent grid's workspace on the other.
 * ``block_kv`` 32,768 (stride 128, 256 fold segments): the plain version
   against plain softmax attention, and an EXP SEU corrected.
 """
@@ -101,17 +104,30 @@ def test_tiling_mirror_takes_the_dry_runs_blocks():
         for code in (0, 1):
             for d in (64, 112, 128, 160, 256):
                 t = b2.tiling(code, 128, bkv, d, skv, cfg.out_stride(d))
-                assert t is not None and t.wide == 1, (bkv, d, code)
+                assert t is not None, (bkv, d, code)
                 assert t.smem <= b2._SMEM_LIMIT // t.per_sm
-                # scores and raw probabilities of each 16-row group
-                assert t.slot_floats >= 2 * 16 * t.W * bkv
+                if bkv < 32768:
+                    # 8 CTAs of skv / 8 fold residues each, no workspace
+                    assert t.layout == "cluster" and t.cluster == 8, t
+                    assert t.wide == 0 and t.slot_floats == 0
+                else:
+                    # 256 fold segments: scores and raw probabilities of
+                    # each 16-row group in the workspace
+                    assert t.layout == "workspace" and t.cluster == 0, t
+                    assert t.slot_floats >= 2 * 16 * t.W * bkv
     # every tiling the first layout took keeps it
     t = b2.tiling(1, 128, 512, 64, 16, 4)
-    assert t.wide == 0 and (t.W, t.KC, t.ST) == (2, 64, 2)
+    assert t.layout == "narrow" and (t.W, t.KC, t.ST) == (2, 64, 2)
+    # deepseek's prefill: 64 rows a cluster (bf16), 32 at D 256
     t = b2.tiling(1, 128, 2048, 128, 64, 8)
-    assert (t.W, t.KC, t.ST, t.per_sm, t.g_kf) == (2, 64, 3, 1, 0)
-    # D 256 at stride 128: the K-fold planes (266 KB) go to the workspace
-    assert b2.tiling(1, 128, 4096, 256, 128, 16).g_kf == 1
+    assert (t.W, t.KC, t.ST, t.per_sm, t.cluster) == (4, 128, 2, 1, 8)
+    assert b2.tiling(1, 128, 2048, 256, 64, 16).W == 2
+    # the per-step output check stays on the workspace layout; D 256 at
+    # stride 128 puts the K-fold planes (266 KB) in the workspace too
+    t = b2.tiling(1, 128, 2048, 128, 64, 8, unified=False)
+    assert (t.layout, t.W, t.KC, t.ST, t.per_sm, t.g_kf) == (
+        "workspace", 2, 64, 3, 1, 0)
+    assert b2.tiling(1, 128, 4096, 256, 128, 16, unified=False).g_kf == 1
 
 
 @pytest.mark.parametrize("d,block_kv", [(72, 64), (128, 40)])
@@ -135,17 +151,45 @@ def test_meta_route_refuses_what_the_kernel_refuses(d, block_kv):
 
 def test_meta_route_allocates_the_workspace_as_the_card_does():
     """deepseek-coder's 32k prefill (56 query heads on 8 of 128, bf16,
-    causal, block_kv 2,048): the output, the per-thread-block counts and
-    their sum, and a persistent grid's workspace as on an H100 (its 132
-    SMs times the tiling's thread blocks an SM, one slot each)."""
+    causal, block_kv 2,048) on the cluster layout: the output, the counts
+    of every CTA (2 clusters of 8 a 128-row tile) and their sum, and no
+    workspace."""
     q = torch.empty((1, 56, 32768, 128), dtype=torch.bfloat16, device="meta")
     k = torch.empty((1, 8, 32768, 128), dtype=torch.bfloat16, device="meta")
     with opcount() as c:
         b2.efta_attention(q, k, k, cfg=EFTAConfig(block_kv=2048), causal=True)
     t = b2.tiling(1, 128, 2048, 128, 64, 8)
+    assert (t.layout, t.W, t.cluster, t.slot_floats) == ("cluster", 4, 8, 0)
+    ctas = 128 // (16 * t.W) * t.cluster
+    counts = 56 * 256 * ctas * 5 * 4 + 56 * 256 * 5 * 4
+    assert c.peak_bytes["meta"] == q.numel() * 2 + counts
+    assert c.launches["efta_attention"]["calls"] == 1
+
+
+def test_meta_route_allocates_the_workspace_at_block_kv_32768():
+    """One 32,768-key block (256 fold segments: the workspace layout), 56
+    query heads on 8 at Sq 4,096: the output, the per-thread-block counts
+    and their sum, and a persistent grid's workspace as on an H100. Its
+    57,344 (bh, tile) pairs outnumber the thread blocks that fit the card
+    at once, so the grid is the 132 SMs times the tiling's thread blocks an
+    SM, one slot each."""
+    q = torch.empty((1, 56, 4096, 128), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 8, 32768, 128), dtype=torch.bfloat16, device="meta")
+    with opcount() as c:
+        b2.efta_attention(q, k, k, cfg=EFTAConfig(block_kv=32768))
+    t = b2.tiling(1, 128, 32768, 128, 128, 8)
+    assert t.layout == "workspace" and t.cluster == 0
     n_sub = 128 // (16 * t.W)
-    slots = min(56 * 256 * n_sub, t.per_sm * b2.H100_SMS)
-    counts = 56 * 256 * n_sub * 5 * 4 + 56 * 256 * 5 * 4
+    pairs = 56 * (4096 // 128) * n_sub
+    slots = t.per_sm * b2.H100_SMS
+    assert pairs > slots
+    # the counts (56, 32 n_sub, 5) and their sum (56, 32, 5), int32, each
+    # in the dry run's 512-byte blocks
+
+    def blocks(n):
+        return -(-n // 512) * 512
+
+    counts = blocks(pairs * 5 * 4) + blocks(56 * 32 * 5 * 4)
     assert c.peak_bytes["meta"] == (q.numel() * 2 + counts
                                     + slots * t.slot_floats * 4)
     assert c.launches["efta_attention"]["calls"] == 1

@@ -435,24 +435,40 @@ def test_abft_matmul_on_the_card_matches_the_cpu(fn, dtype):
         _same((got[0].cpu(), got[1].cpu()), ref)
 
 
-# kernel B2 at wide KV blocks (its second instantiation: scores in a global
-# workspace, a persistent grid): the dry run's block_kv 2,048 (fold stride
-# 64) over two blocks, 4,096 (stride 128) with a ragged tail, and 32,768
-# (256 fold segments) at 16 query rows; 2 query heads on one KV head
+# kernel B2 at wide KV blocks: the dry run's block_kv 2,048 (fold stride
+# 64) over two blocks and 4,096 (stride 128) with a ragged tail on the
+# cluster layout (a cluster of CTAs shares a tile's rows, each CTA its fold
+# residues), and 32,768 (256 fold segments) at 16 query rows on the
+# workspace layout (scores in a global workspace, a persistent grid); 2
+# query heads on one KV head
 B2_WIDE = {"bkv2048_causal": dict(Sq=4096, Skv=4096, bkv=2048, causal=True),
            "bkv4096_ragged": dict(Sq=256, Skv=8192, bkv=4096, causal=False,
                                   kv_len=8092),
            "bkv32768_sq16": dict(Sq=16, Skv=65536, bkv=32768, causal=False)}
+B2_WIDE_LAYOUT = {"bkv2048_causal": "cluster", "bkv4096_ragged": "cluster",
+                  "bkv32768_sq16": "workspace"}
+
+
+def _wide_bound(plain, q, k, v, causal, kv_len, window=None):
+    """``_bound`` plus, in bf16, 2^-7 (P |V|): the kernel and the plain
+    version may round a p next to a bf16 boundary apart (their f32 scores
+    differ in the last bits)."""
+    from repro_torch.core.efta import reference_attention
+    bound = _bound(plain[0])
+    if plain[0].dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * to_np(reference_attention(
+            q, k, v.float().abs(), causal=causal, kv_len=kv_len,
+            window=window).float())
+    return bound
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("regime", sorted(B2_WIDE))
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
                                   Site.ROWSUM, Site.GEMM2])
 def test_contiguous_kernel_wide_blocks(regime, d, dtype, site):
-    from repro_torch.core.efta import reference_attention
     from repro_torch.kernels import efta_attention as mod
     dev = cuda_or_skip()
     shape = dict(B2_WIDE[regime])
@@ -461,7 +477,8 @@ def test_contiguous_kernel_wide_blocks(regime, d, dtype, site):
     q, k, v = _contig(dev, dtype, H=2, Hkv=1, D=d, seed=17, **shape)
     cfg = EFTAConfig(mode="correct", block_kv=bkv)
     assert mod.kernel_tiling(mod.DTYPES[dtype], min(128, shape["Sq"]), bkv,
-                             d, cfg.kv_stride(bkv), cfg.out_stride(d)).wide
+                             d, cfg.kv_stride(bkv), cfg.out_stride(d)
+                             ).layout == B2_WIDE_LAYOUT[regime]
     row = shape["Sq"] - 1
     fault = None if site is None else [int(site), 0, 1, row, 3, 30, 1, 0]
     kw = dict(cfg=cfg, causal=causal, kv_len=kv_len, fault=fault)
@@ -469,13 +486,61 @@ def test_contiguous_kernel_wide_blocks(regime, d, dtype, site):
     plain = efta_attention_torch(q, k, v, **kw)
     out, det = got
     ref = to_np(plain[0].float())
-    bound = _bound(plain[0])
-    if dtype == torch.bfloat16:
-        # the two may round a p next to a bf16 boundary apart (their f32
-        # scores differ in the last bits): 2^-7 (P |V|) more
-        bound = bound + 2.0 ** -7 * to_np(reference_attention(
-            q, k, v.float().abs(), causal=causal, kv_len=kv_len).float())
+    bound = _wide_bound(plain, q, k, v, causal, kv_len)
     diff = np.abs(to_np(out.float()) - ref)
+    assert (diff <= bound).all(), f"max |kernel - plain| {diff.max():.3e}"
+    np.testing.assert_array_equal(to_np(det), to_np(plain[1]))
+    if site is None:
+        assert int(det.sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP, Site.GEMM1):
+        assert int(det.sum()) >= 1
+
+
+# the cluster layout in its regimes at block_kv 2,048 (D 128, a cluster of
+# 8 CTAs of 8 fold residues each), two KV blocks: a ragged kv_len that ends
+# inside the second block (non-causal, 256 query rows), GQA (6 query heads
+# on 2 KV heads) under the causal mask, and causal with a 1,000-key window
+# (the first block skipped for the last tiles); the SEU strikes the last
+# row in the second block, at a visible key column whose residue lies in
+# CTA 0, 6 or 7 (output column 3 for GEMM II). bf16 at one cluster tile of
+# 16, 32 or 64 rows (max_groups 1, 2, 4); f32 at 64.
+B2_CLUSTER = {"ragged": dict(H=2, Hkv=1, Sq=256, causal=False, kv_len=3000,
+                             col=901),
+              "gqa": dict(H=6, Hkv=2, Sq=4096, causal=True, col=1077),
+              "window": dict(H=2, Hkv=1, Sq=4096, causal=True, window=1000,
+                             col=1085)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B2_CLUSTER))
+@pytest.mark.parametrize("groups,dtype", [(1, torch.bfloat16),
+                                          (2, torch.bfloat16),
+                                          (4, torch.bfloat16),
+                                          (4, torch.float32)])
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+def test_contiguous_kernel_cluster_layout(regime, groups, dtype, site,
+                                          monkeypatch):
+    from repro_torch.kernels import efta_attention as mod
+    dev = cuda_or_skip()
+    monkeypatch.setattr(mod, "_MAX_GROUPS", groups)
+    shape = dict(B2_CLUSTER[regime])
+    causal, kv_len = shape.pop("causal"), shape.pop("kv_len", None)
+    window, key_col = shape.pop("window", None), shape.pop("col")
+    q, k, v = _contig(dev, dtype, Skv=4096, D=128, seed=23, **shape)
+    cfg = EFTAConfig(mode="correct", block_kv=2048)
+    t = mod.kernel_tiling(mod.DTYPES[dtype], 128, 2048, 128, 64, 8, groups)
+    assert t.layout == "cluster" and t.cluster == 8
+    assert t.W == (groups if dtype == torch.bfloat16 else 4)
+    col = 3 if site == Site.GEMM2 else key_col
+    fault = None if site is None else [int(site), 1, 1, shape["Sq"] - 1, col,
+                                       30, 1, 0]
+    kw = dict(cfg=cfg, causal=causal, kv_len=kv_len, window=window,
+              fault=fault)
+    out, det = efta_attention(q, k, v, **kw)
+    plain = efta_attention_torch(q, k, v, **kw)
+    bound = _wide_bound(plain, q, k, v, causal, kv_len, window)
+    diff = np.abs(to_np(out.float()) - to_np(plain[0].float()))
     assert (diff <= bound).all(), f"max |kernel - plain| {diff.max():.3e}"
     np.testing.assert_array_equal(to_np(det), to_np(plain[1]))
     if site is None:
@@ -488,18 +553,20 @@ def test_contiguous_kernel_wide_blocks(regime, d, dtype, site):
 def test_tiling_mirror_equals_the_kernels_rule():
     """``tiling`` (the C rule in Python, which the meta route takes)
     against the built kernel's ``efta_attention_tiles``, refusals
-    included."""
+    included, with and without unified output verification."""
     from repro_torch.kernels import efta_attention as mod
     cuda_or_skip()
     for code in (0, 1):
         for bq in (16, 128):
-            for mg in (1, 2):
+            for mg in (1, 2, 4):
                 for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
                     for d in (64, 72, 112, 128, 160, 256):
                         for skv in (4, 8, 16, 32, 64, 128):
                             if skv > bkv:
                                 continue
-                            shapes = (code, bq, bkv, d, skv,
-                                      EFTAConfig().out_stride(d), mg)
-                            assert mod.tiling(*shapes) == \
-                                mod.kernel_tiling(*shapes), shapes
+                            for unified in (True, False):
+                                shapes = (code, bq, bkv, d, skv,
+                                          EFTAConfig().out_stride(d), mg,
+                                          unified)
+                                assert mod.tiling(*shapes) == \
+                                    mod.kernel_tiling(*shapes), shapes
