@@ -45,8 +45,10 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              D 256, Skv 1024, window 512 and none, bf16 and f32); each
              clean, under each compute-site SEU in correct and in detect
              mode, with per-step output verification and with mode off;
-             the bf16 buckets and gemma3-1b window 512 at 32 and at 16
-             rows (2 and 1 groups of 4 warps) per thread block.
+             the bf16 bucket 512 at 64 rows a CTA (the tile layout, held
+             to ``out_bound`` plus ``p_rounding_slack``) and, as both bf16
+             buckets and gemma3-1b window 512, at 32 and at 16 rows (2 and
+             1 groups of 4 warps) per thread block (the narrow layout).
              Outputs within ``out_bound`` element by element (f32: 1e-5 of
              the largest output; bf16: about one bf16 ulp), detection
              vectors exactly equal.
@@ -206,7 +208,7 @@ b2_wide  — kernel B2 at the dry run's wide KV blocks (past its narrow
              ``p_rounding_slack``), timed with bound and SDPA, with each
              case's tiling, cluster size, registers and spills; (b) the
              Python tiling mirror (the meta route's rule) against the
-             kernel's ``efta_attention_tiles`` on 6,336 shapes (with and
+             kernel's ``efta_attention_tiles`` on 9,504 shapes (with and
              without unified verification); (c) deepseek-coder-33b at
              full width, 2 of 62 layers, bf16, ``Model.prefill`` of 32,768
              tokens under ``efta_pallas`` at block_kv 2,048 (2 B2
@@ -226,9 +228,11 @@ examples — the five ``examples_torch/`` scripts as subprocesses on the
              on the same inputs (head_dim 16, block 16: a regime no other
              phase reaches): outputs within the bound, counts equal.
 b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
-             earlier phases timed and hashed, and a hash of the narrow
-             kernel's SASS (``cuobjdump -sass``), to hold two checkouts'
-             kernels to each other (``phase_b2_narrow``).
+             earlier phases timed and hashed with each one's layout (bf16
+             on the tile layout where it holds the shapes), and a hash of
+             the narrow and the tile kernels' SASS (``cuobjdump -sass``),
+             to hold two checkouts' kernels to each other
+             (``phase_b2_narrow``).
 
 dist     — distributed training on two gloo ranks that share the card
              (subprocesses of this script on cuda:0; nccl refuses two
@@ -248,8 +252,9 @@ acceptance rate of runs without the profiler, and the device's busy share
 over a window of steps (profiler, CUDA activity) of one run each that is
 not timed: the bf16 faulted twin after its faults, the cold draft, the
 gather run with a flip after its repair. The kernels line carries B2's
-numbers in the regimes of phases 16-20, b2_wide and 22 and B1's in those
-of phase 19 under ``regimes``.
+numbers in the regimes of phases 16-20, b2_wide and 22, each with its
+layout (narrow, tile, cluster or workspace), and B1's in those of phase 19
+under ``regimes``.
 
 The phases run in the order 1, 2, dist (while this process holds next
 to nothing on the card), 3-5, 7-9, 14-19, b2_wide, 22, 20, 23, dryrun,
@@ -345,16 +350,20 @@ PTXAS = {}
 def ptxas_summary(log):
     """Registers, stack and spills per kernel instantiation, from nvcc's
     ``-Xptxas -v`` output: {"bf16" | "f32" [+ " workspace" | " cluster
-    D<=128" | " cluster D<=256"]: "N registers, ..."} (B2's
-    ``efta_attention_kernel_wide`` and ``..._kernel_cluster``, whose two
-    instantiations hold 4 and 8 GEMM II n-tiles a warp)."""
+    D<=128" | " cluster D<=256"] | "bf16 tile" | "bf16 fold": "N registers,
+    ..."} (B2's ``efta_attention_kernel_wide`` and ``..._kernel_cluster``,
+    whose two instantiations hold 4 and 8 GEMM II n-tiles a warp, and the
+    tile layout's two bf16 kernels, ``..._kernel_tile`` and its fold pass
+    ``..._kernel_fold``)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ("bf16" if "bfloat16" in ln else "f32") + (
-                " workspace" if "kernel_wide" in ln else
-                (" cluster D<=128" if "Li4E" in ln else " cluster D<=256")
-                if "kernel_cluster" in ln else "")
+            name = "bf16 tile" if "kernel_tile" in ln else \
+                "bf16 fold" if "kernel_fold" in ln else \
+                ("bf16" if "bfloat16" in ln else "f32") + (
+                    " workspace" if "kernel_wide" in ln else
+                    (" cluster D<=128" if "Li4E" in ln else " cluster D<=256")
+                    if "kernel_cluster" in ln else "")
         elif name and ("spill" in ln or "registers" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":")[-1].strip()
                          ).strip()
@@ -1032,15 +1041,17 @@ def seu_bit(mode: str) -> int:
 def b2_cases(torch):
     """Each case with the 16-row groups per thread block it is run at (the
     kernel takes at most that many): the main path's buckets and gemma3-1b's
-    D 256 at every choice."""
+    D 256 at every choice; the bf16 bucket 512 takes the tile layout at 4
+    (64 rows a CTA), the narrow one at 2 and 1 (bucket 64, 64 x 64 scores a
+    tile's block, keeps the narrow one at any)."""
     cases = []
     for S in (64, 512):
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(dict(name=f"gpt2 prefill S{S} {str(dtype)[6:]}",
                               dtype=dtype, B=1, H=12, Hkv=12, D=64, Sq=S,
                               Skv=S, cfg={}, kw=dict(causal=True),
-                              groups=(2, 1) if dtype == torch.bfloat16
-                              else (2,)))
+                              groups=((4, 2, 1) if S == 512 else (2, 1))
+                              if dtype == torch.bfloat16 else (2,)))
     for causal in (True, False):
         cases.append(dict(name=f"multi-block kv_len 100 causal {causal}",
                           dtype=torch.float32, B=2, H=4, Hkv=2, D=64,
@@ -1134,8 +1145,23 @@ def phase_kernel_b2(torch):
             torch.cuda.synchronize()
             return gots, ref
 
-        def compare_all(gots, ref, what):
-            errs = [b2_compare(torch, got, ref, f"{what}, groups {ng}")
+        # at 4 groups the bf16 buckets take the tile layout: held to
+        # out_bound plus p_rounding_slack, as b2_regime_numbers holds it
+        tile_slack = None
+        bk = min(EFTAConfig(**c["cfg"]).block_kv, c["Skv"])
+        if mod.kernel_tiling(
+                mod.DTYPES[c["dtype"]], min(128, c["Sq"]), bk, c["D"],
+                EFTAConfig(**c["cfg"]).kv_stride(bk),
+                EFTAConfig(**c["cfg"]).out_stride(c["D"]), max(c["groups"]),
+        ).layout == "tile":
+            from repro_torch.core.efta import reference_attention
+            tile_slack = 2.0 ** -7 * reference_attention(
+                q, k, v.float().abs(), causal=c["kw"].get("causal", False),
+                window=c["kw"].get("window"), kv_len=c["kw"].get("kv_len"))
+
+        def compare_all(gots, ref, what, tile_slack=tile_slack):
+            errs = [b2_compare(torch, got, ref, f"{what}, groups {ng}",
+                               tile_slack if ng == 4 else None)
                     for ng, got in gots.items()]
             return max(e[0] for e in errs), max(e[1] for e in errs)
 
@@ -1373,9 +1399,13 @@ def b2_regime_numbers(torch, cap, p_rounding=False, reps=(50, 20),
     """Kernel against its plain version on a captured launch (clean and
     under each compute-site SEU in correct mode, top exponent bit, on the
     last query row), its device time, bound, plain time and SDPA's device
-    time on the same q/k/v. ``p_rounding``: bf16 outputs may also differ
-    by ``p_rounding_slack`` (phase 19's regimes). ``reps``: the calls of
-    the event and of the profiled windows."""
+    time on the same q/k/v, and the layout the kernel takes there.
+    ``p_rounding``: bf16 outputs may also differ by ``p_rounding_slack``
+    (phase 19's regimes); so may they wherever the launch takes the tile
+    layout, whose GEMM I (wgmma) sums in another order than the narrow
+    layout's, so that a p next to a bf16 rounding boundary may round
+    either way. ``reps``: the calls of the event and of the profiled
+    windows."""
     import torch.nn.functional as F
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.core.fault import Site
@@ -1384,9 +1414,16 @@ def b2_regime_numbers(torch, cap, p_rounding=False, reps=(50, 20),
     q, k, v, kw = cap["q"], cap["k"], cap["v"], dict(cap["kw"])
     kw.pop("fault", None)
     cfg = kw.pop("cfg")
+    mod = b2_module()
+    bkv = min(cfg.block_kv, k.shape[2])
+    tiling = mod.kernel_tiling(mod.DTYPES[q.dtype],
+                               min(kw.get("block_q", 128), q.shape[2]), bkv,
+                               q.shape[3], cfg.kv_stride(bkv),
+                               cfg.out_stride(q.shape[3]), mod._MAX_GROUPS,
+                               cfg.unified)
     worst, seu = 0.0, {}
     slack = None
-    if p_rounding and q.dtype == torch.bfloat16:
+    if (p_rounding or tiling.layout == "tile") and q.dtype == torch.bfloat16:
         from repro_torch.core.efta import reference_attention
         slack = 2.0 ** -7 * reference_attention(
             q, k, v.float().abs(), causal=bool(kw.get("causal")),
@@ -1439,7 +1476,8 @@ def b2_regime_numbers(torch, cap, p_rounding=False, reps=(50, 20),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "max_abs_err": max_err,
-            "worst_err_over_bound": worst, "seu_detected": seu}
+            "worst_err_over_bound": worst, "seu_detected": seu,
+            "layout": tiling.layout}
 
 
 def phase_numbers_b2(torch, np, ring, max_err):
@@ -1454,7 +1492,7 @@ def phase_numbers_b2(torch, np, ring, max_err):
         by_groups = {}
         mod = b2_module()
         default = mod._MAX_GROUPS
-        for ng in (2, 1):
+        for ng in (4, 2, 1):
             mod._MAX_GROUPS = ng
             by_groups[ng] = device_ms(
                 torch, lambda: efta_attention(cap["q"], cap["k"], cap["v"],
@@ -3757,6 +3795,8 @@ def b2_wide_kernel(torch):
 def b2_ptxas(dtype, layout, d):
     """Phase 2's registers, stack and spills of B2's instantiation for
     ``dtype`` ("bfloat16" or "float32"), ``layout`` and head dim ``d``."""
+    if layout == "tile":
+        return PTXAS.get("efta_attention", {}).get("bf16 tile")
     key = ("bf16" if dtype == "bfloat16" else "f32") + (
         "" if layout == "narrow" else " workspace" if layout == "workspace"
         else " cluster D<=128" if d <= 128 else " cluster D<=256")
@@ -3773,7 +3813,7 @@ def b2_wide_tiling():
     mod = b2_module()
     n, refused, layouts = 0, 0, Counter()
     for code in (0, 1):
-        for bq in (16, 128):
+        for bq in (16, 64, 128):
             for mg in (1, 2, 4):
                 for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
                     for d in (64, 72, 112, 128, 160, 256):
@@ -4054,22 +4094,25 @@ def phase_b2_wide(torch, np, seed):
 
 # (B, H, Hkv, Sq, Skv, D, causal, block_kv, window): B2's narrow-path
 # regimes of earlier phases (gpt2's ring prefill buckets, the VLM's self
-# prefill at block_kv 64, bert-large's encoder, gemma3-1b's D 256 under its
-# 512 window, kimi-k2's D 112 heads)
+# and cross prefill at block_kv 64, bert-large's encoder, gemma3-1b's D 256
+# under its 512 window, kimi-k2's D 112 and arctic's D 128 heads)
 B2_NARROW_AB = {"gpt2_S512": (1, 12, 12, 512, 512, 64, True, 512, None),
                 "gpt2_S64": (1, 12, 12, 64, 64, 64, True, 512, None),
                 "vlm_self": (8, 32, 8, 512, 512, 128, True, 64, None),
                 "bert": (8, 16, 16, 512, 512, 64, False, 512, None),
                 "gemma3_w512": (1, 4, 1, 1024, 1024, 256, True, 512, 512),
-                "kimi_512": (1, 64, 8, 512, 512, 112, True, 512, None)}
+                "kimi_512": (1, 64, 8, 512, 512, 112, True, 512, None),
+                "arctic_512": (1, 56, 8, 512, 512, 128, True, 512, None),
+                "vlm_cross": (8, 32, 8, 512, 1600, 128, False, 64, None)}
 
 
-def narrow_sass():
+def narrow_sass(kinds=("efta_attention_kernelI",)):
     """Per instantiation of B2's narrow kernel (``efta_attention_kernel``,
-    not ``_wide`` or ``_cluster``) in the built library: the sha1 of its
-    ``cuobjdump -sass`` text, encodings included, with the anonymous
-    namespace's per-build ``_GLOBAL__N__<hash>_`` taken out, and its line
-    count."""
+    not ``_wide``, ``_cluster``, ``_tile`` or ``_fold``; other ``kinds``:
+    substrings of the kernels' mangled names) in the built library: the
+    sha1 of its ``cuobjdump -sass`` text, encodings included, with the
+    anonymous namespace's per-build ``_GLOBAL__N__<hash>_`` taken out, and
+    its line count."""
     import hashlib
     import re
     import shutil
@@ -4089,20 +4132,24 @@ def narrow_sass():
             funcs[name].append(ln)
     return {n: {"sha1": hashlib.sha1("\n".join(body).encode())
                 .hexdigest()[:16], "lines": len(body)}
-            for n, body in funcs.items() if "efta_attention_kernelI" in n}
+            for n, body in funcs.items() if any(k in n for k in kinds)}
 
 
 def phase_b2_narrow(torch, np, seed):
-    """B2 at ``B2_NARROW_AB`` in bf16 and f32: the profiler's device time
-    per launch (20 calls), and a hash of the clean and an EXP-faulted
-    output with both detection vectors; the narrow kernel's SASS hashes
-    (``narrow_sass``). Only under ``--only b2_narrow``: run in two
-    checkouts in turns (this file copied into the other's root; parent,
-    change, change, parent), it holds one kernel to the other (equal
-    hashes and counts) and puts their times side by side."""
+    """B2 at ``B2_NARROW_AB`` in bf16 and f32: the layout the kernel takes,
+    the profiler's device time per launch (20 calls; on the tile layout
+    its fold pass and the tile kernel, and the fold pass alone), and a
+    hash of the clean and an EXP-faulted output with both detection
+    vectors; the SASS hashes of the narrow kernel (``narrow_sass``) and of
+    the tile layout's two kernels. Only under ``--only b2_narrow``: run in
+    two checkouts in turns (this file copied into the other's root;
+    parent, change, change, parent), it holds one kernel to the other
+    (equal hashes and counts where both take the same layout) and puts
+    their times side by side."""
     import hashlib
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.kernels.efta_attention import efta_attention
+    mod = b2_module()
     res = {}
     for name, (B, H, Hkv, Sq, Skv, D, causal, bkv, window) in \
             B2_NARROW_AB.items():
@@ -4118,13 +4165,24 @@ def phase_b2_narrow(torch, np, seed):
                 2, 0, 1, Sq - 1, 3, seu_bit("correct"), 1, 0], **kw)
             h = hashlib.sha1(o.float().cpu().numpy().tobytes() +
                              of.float().cpu().numpy().tobytes())
+            cfg = kw["cfg"]
+            bk = min(bkv, Skv)
+            layout = mod.kernel_tiling(
+                mod.DTYPES[dt], min(128, Sq), bk, D, cfg.kv_stride(bk),
+                cfg.out_stride(D)).layout
             res[f"{name} {str(dt)[6:]}"] = {
+                "layout": layout,
                 "device_ms": device_ms(torch, lambda: efta_attention(
                     q, k, v, **kw), 20, name="efta_attention_kernel"),
+                "fold_ms": device_ms(torch, lambda: efta_attention(
+                    q, k, v, **kw), 20, name="efta_attention_kernel_fold")
+                if layout == "tile" else None,
                 "hash": h.hexdigest()[:16], "detected": d.tolist(),
                 "detected_exp_seu": df.tolist()}
     emit({"phase": "b2_narrow", "ok": True, "regimes": res,
-          "sass": narrow_sass()})
+          "sass": narrow_sass(),
+          "tile_sass": narrow_sass(("efta_attention_kernel_tile",
+                                    "efta_attention_kernel_fold"))})
 
 
 # ---------------------------------------------------------------------------

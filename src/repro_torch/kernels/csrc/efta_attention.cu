@@ -177,14 +177,59 @@
 //     the fold product, and its second walk reads back exactly the values
 //     that product checked (nothing is recomputed unchecked: the recompute
 //     is the correction, as in the reference).
-// The check's unit stays the reference's KV block in all three layouts.
-// Every tiling the first layout fits keeps the first kernel (same outputs
-// and counts). PERF.md section 6 has each layout's times beside the bound.
+// The tile layout (efta_attention_kernel_tile and its fold pass,
+// efta_attention_tile.cuh) takes the first layout's prefill shapes in bf16
+// wherever it holds them: unified output verification, query tiles of at
+// least 64 rows with four row groups allowed and a query tile's KV block
+// of at least 8,192 scores (below that, as at gpt2's and t5's 64-token
+// buckets, the fold pass and a CTA's fixed costs outweigh what the layout
+// saves), block_kv <= 1,024 with s_kv a power of two from 2 to 32 and g_kv
+// <= 32, D <= 128, and 64 rows of f32 scores beside the ring in shared
+// memory (1,024-key blocks do not fit).
+// What held the first layout back at these shapes (PERF.md section 6 has
+// its phase split): every thread block folded K, V's column checksums and
+// max|V| of each KV block it streamed, though they depend on K and V alone
+// (at kimi-k2's bucket 512, 128 thread blocks repeated the folds of each
+// block); its V pass streamed V once per 16- to 64-column slice of D
+// through a ring gated by block barriers (seven times at D 112, with half
+// the warps of a slice idle); the checksum products ran as f32 FMAs.
+//   * A fold pass, once per (KV head, KV block), before the tile kernel:
+//     the K-fold planes, the V column checksums (split into bf16 high and
+//     low parts, the B operand of the O-checksum products) and max|V|,
+//     summed in segment order as the first layout sums them, into a
+//     scratch tensor that the wrapper allocates (one slot a KV head and KV
+//     block). Each entry is a chain of dependent loads and adds, so each
+//     (KV head, KV block) is spread over blocks of 256 threads, one
+//     checksum entry a thread.
+//   * One CTA a tile of 64 query rows: four consumer warpgroups and a
+//     producer warpgroup that streams the block's K chunks, then its V
+//     chunks with their checksum rows, through an mbarrier ring (the
+//     cluster layout's machinery, efta_hopper.cuh). GEMM I is wgmma m64 x
+//     KC / 4 keys a warpgroup, Q and K from shared memory; GEMM II wgmma
+//     m64 over the D / 8 n-tiles split among the four warpgroups (32, 32,
+//     24 and 24 columns at D 112), p from registers, V read once for all
+//     of D. The output accumulator stays in registers across KV blocks:
+//     64 rows of scores and the ring leave no room for it.
+//   * The row phases are the first layout's: lanes on (row, residue)
+//     pairs, four rows a warp, 16 warps an SM, and a row needs no other
+//     CTA, so the counts follow the first layout's.
+//   * The checksum products on the tensor cores, as the cluster layout's:
+//     Q fold(K)^T in TF32 with fold(K) split into high and low parts (two
+//     warps a product, each over half of D, where s_kv <= 8 leaves fewer
+//     products than a group has warps), and the O-checksum products on
+//     mma.sync with p and the V checksums split into bf16 high and low
+//     parts, each warpgroup a share of the keys of one checksum n-tile,
+//     the shares summed in order.
+// The check's unit stays the reference's KV block in all four layouts.
+// Every tiling the first layout fits and the tile layout does not take
+// keeps the first kernel (same outputs and counts). PERF.md section 6 has
+// each layout's times beside the bound.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
 
 #include "efta_common.cuh"
+#include "efta_hopper.cuh"
 
 // Phase clocks, a build option for measurement only (-DEFTA_PHASE_CLOCKS;
 // the library that chip_smoke.py and the wrapper build never sets it):
@@ -309,10 +354,12 @@ int slice_of(int D) {
 }
 
 #include "efta_attention_cluster.cuh"
+#include "efta_attention_tile.cuh"
 
-// cl: CTAs a cluster of the cluster layout, 0 for the other two
+// cl: CTAs a cluster of the cluster layout, 0 for the others; tile: the
+// tile layout
 struct Tiling {
-  int W, KC, ST, per_sm, wide, g_kf, cl;
+  int W, KC, ST, per_sm, wide, g_kf, cl, tile;
 };
 
 // row groups per block (2 or 1, each of 16 rows and WPG warps), keys per
@@ -332,12 +379,28 @@ struct Tiling {
 // narrower ones, then the most rows, the widest chunk, the most CTAs (the
 // fewest keys a CTA) and the deepest ring.
 // Else (g_kv > 32 as at 32,768 keys, or unified = 0) the workspace path.
+// Before all of them, the tile layout wherever it holds the shapes (bf16,
+// unified, block_q >= 64 and block_q x block_kv >= 8,192, max_groups >= 4,
+// block_kv <= 1,024, s_kv a power of two from 2 to 32, g_kv <= 32, D <=
+// 128) and fits: the widest chunk (128, 64, 32 keys), then the deepest
+// ring.
 // python mirror: repro_torch/kernels/efta_attention.py::tiling
 bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
                   int max_groups, int unified, Tiling* t) {
   if (Bc % 16 || D % 16 || skv < 1 || Bc % skv || sout <= 0 || D % sout ||
       slice_of(D) == 0)
     return false;
+  if (esz == 2 && unified && block_q >= 16 * TL_GROUPS &&
+      (long long)block_q * Bc >= TL_MIN_SCORES && max_groups >= TL_GROUPS &&
+      Bc <= 1024 && skv >= 2 && skv <= 32 &&
+      !(skv & (skv - 1)) && Bc / skv <= MAX_G && D <= 32 * TL_NT)
+    for (int kc = 128; kc >= 32; kc /= 2)
+      for (int st = 3; st >= 2; --st)
+        if (kc <= Bc && Bc % kc == 0 &&
+            make_tile_layout(kc, st, D, Bc, skv, sout).total <= SMEM_LIMIT) {
+          *t = Tiling{TL_GROUPS, kc, st, 1, 0, 0, 0, 1};
+          return true;
+        }
   int wmax = (block_q + 15) / 16;
   if (wmax > max_groups) wmax = max_groups;
   if (wmax > MAX_GROUPS) wmax = MAX_GROUPS;
@@ -345,7 +408,7 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
     if (Bc % kc || make_layout(w, kc, st, D, Bc, skv, sout, esz, wide,
                                g_kf).total > SMEM_LIMIT / per_sm)
       return false;
-    *t = Tiling{w, kc, st, per_sm, wide, g_kf, 0};
+    *t = Tiling{w, kc, st, per_sm, wide, g_kf, 0, 0};
     return true;
   };
   if (skv >= 2 && skv <= 32 && !(skv & (skv - 1)) && Bc / skv <= MAX_G)
@@ -369,7 +432,7 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
                   make_cluster_layout(w, kc, st, D, Bc, skv, sout, esz, n)
                           .total > SMEM_LIMIT)
                 continue;
-              *t = Tiling{w, kc, st, 1, 0, 0, n};
+              *t = Tiling{w, kc, st, 1, 0, 0, n, 0};
               return true;
             }
   for (int g_kf = 0; g_kf <= 1; ++g_kf)
@@ -441,7 +504,7 @@ cudaError_t launch_cluster(const CParams& c, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c.n * c.P.BH * c.P.n_q * c.P.n_sub);
-  cfg.blockDim = dim3(32 * WPG * c.P.W + CL_PRODUCER);
+  cfg.blockDim = dim3(32 * WPG * c.P.W + PRODUCER_THREADS);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -460,16 +523,39 @@ cudaError_t launch_cluster(const CParams& c, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the tile layout: the fold pass (where EFTA is on), then one CTA for each
+// (bh, tile) pair
+cudaError_t launch_tile(const TParams& c, cudaStream_t stream) {
+  const size_t bytes = c.L.total;
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  if (c.P.mode != 0) {
+    efta_attention_kernel_fold<<<dim3(c.P.n_kv * c.F.splits,
+                                      c.P.BH / c.P.grp),
+                                 TL_FOLD_THREADS, 0, stream>>>(c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      efta_attention_kernel_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  efta_attention_kernel_tile<<<c.P.BH * c.P.n_q * c.P.n_sub,
+                               32 * WPG * TL_GROUPS + PRODUCER_THREADS, bytes,
+                               stream>>>(c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Thread blocks per reference query tile (block_q rows) for these shapes,
 // or 0 when no tiling fits one SM's shared memory. dtype as below; unified
-// as the launch's. With `tiling` (9 ints, or NULL) also the choice: {row
+// as the launch's. With `tiling` (10 ints, or NULL) also the choice: {row
 // groups W, keys a chunk, ring stages, thread blocks an SM, wide path, K
-// folds in the workspace, shared-memory bytes, workspace floats a slot,
-// CTAs a cluster (0: not the cluster layout)}.
+// folds in the workspace, shared-memory bytes, workspace floats a slot (the
+// tile layout: fold-pass floats a KV head and KV block), CTAs a cluster (0:
+// not the cluster layout), the tile layout}.
 int efta_attention_tiles(int dtype, int block_q, int block_kv, int D,
                          int s_kv, int s_out, int max_groups, int unified,
                          int* tiling) {
@@ -482,14 +568,18 @@ int efta_attention_tiles(int dtype, int block_q, int block_kv, int D,
     const Layout L = make_layout(t.W, t.KC, t.ST, D, block_kv, s_kv, s_out,
                                  esz, t.wide, t.g_kf);
     const int smem =
-        t.cl ? (int)make_cluster_layout(t.W, t.KC, t.ST, D, block_kv, s_kv,
-                                        s_out, esz, t.cl).total
-             : (int)L.total;
-    const int v[9] = {t.W, t.KC, t.ST, t.per_sm, t.wide, t.g_kf, smem,
-                      t.wide ? (int)make_slot(L, t.W, s_kv, t.g_kf).floats
-                             : 0,
-                      t.cl};
-    for (int i = 0; i < 9; ++i) tiling[i] = v[i];
+        t.tile ? (int)make_tile_layout(t.KC, t.ST, D, block_kv, s_kv, s_out)
+                     .total
+        : t.cl ? (int)make_cluster_layout(t.W, t.KC, t.ST, D, block_kv, s_kv,
+                                          s_out, esz, t.cl).total
+               : (int)L.total;
+    const int floats =
+        t.tile   ? make_fold(D, block_kv, s_kv, s_out).floats
+        : t.wide ? (int)make_slot(L, t.W, s_kv, t.g_kf).floats
+                 : 0;
+    const int v[10] = {t.W,    t.KC,   t.ST, t.per_sm, t.wide,
+                       t.g_kf, smem, floats, t.cl,     t.tile};
+    for (int i = 0; i < 10; ++i) tiling[i] = v[i];
   }
   return (block_q + 16 * t.W - 1) / (16 * t.W) * (t.cl ? t.cl : 1);
 }
@@ -568,9 +658,15 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   p.S = make_slot(p.L, p.W, s_kv, t.wide && t.g_kf);
   p.n_sub = (block_q + 16 * p.W - 1) / (16 * p.W);
   if (t.cl ? (long long)t.cl * BH * n_q * p.n_sub > 0x7fffffff
-           : t.wide ? (ws == nullptr || slots <= 0 ||
-                       (long long)BH * n_q * p.n_sub > 0x7fffffff)
-                    : (long long)n_q * p.n_sub > 65535)
+      : t.tile ? (ws == nullptr || slots != BH / grp * n_kv ||
+                  (long long)BH * n_q * p.n_sub > 0x7fffffff ||
+                  BH / grp > 65535 ||
+                  (long long)n_kv *
+                          make_fold(D, block_kv, s_kv, s_out).splits >
+                      0x7fffffff)
+      : t.wide ? (ws == nullptr || slots <= 0 ||
+                  (long long)BH * n_q * p.n_sub > 0x7fffffff)
+               : (long long)n_q * p.n_sub > 65535)
     return (int)cudaErrorInvalidValue;
   p.scale = scale;
   p.eps1 = eps1;
@@ -587,6 +683,13 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   const int f[8] = {f0, f1, f2, f3, f4, f5, f6, f7};
   for (int i = 0; i < 8; ++i) p.fault[i] = f[i];
   cudaStream_t s = (cudaStream_t)stream;
+  if (t.tile) {
+    TParams c;
+    c.P = p;
+    c.L = make_tile_layout(t.KC, t.ST, D, block_kv, s_kv, s_out);
+    c.F = make_fold(D, block_kv, s_kv, s_out);
+    return (int)launch_tile(c, s);
+  }
   if (t.cl) {
     CParams c;
     c.P = p;

@@ -4,6 +4,7 @@
 // and raw probabilities in workspace slot blockIdx.x).
   constexpr bool BF = sizeof(T) == 2;
   constexpr int RPW = 16 / WPG;  // rows per warp in the row phases
+  PHASE_INIT
   const Layout& L = P.L;
   const int iq = tile / P.n_sub, sub = tile - iq * P.n_sub;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -96,6 +97,7 @@
   float vm = 0.f;  // this thread's share of the running max|V|
   int det[5] = {0, 0, 0, 0, 0};
   __syncthreads();
+  PHASE_MARK(0)
 
   for (int j = 0; j < P.n_kv; ++j) {
     const int kv_start = j * Bc;
@@ -141,7 +143,9 @@
 
     // ---- K pass: GEMM I + NVR clip into the scores, K folds ----
     for (int ck = 0; ck < nc; ++ck) {
+      PHASE_MARK(1)
       const T* kb = acquire(ck);
+      PHASE_MARK(9)
       const int c0 = ck * KC;
       if (gact && tc) {
         if constexpr (BF) {
@@ -235,6 +239,7 @@
       }
     }
     __syncthreads();  // the K folds and every warp's scores are complete
+    PHASE_MARK(1)
 
     if (wact) {
       if (ft) {
@@ -264,6 +269,7 @@
         }
         __syncwarp();
       }
+      PHASE_MARK(2)
 
       // ---- mask, running max (+ shadow): s_kv lanes per row ----
       if constexpr (WIDE) {
@@ -340,6 +346,7 @@
         }
       }
       __syncwarp();
+      PHASE_MARK(3)
 
       // ---- EXP with checksum reuse (paper Case 2), backstop, mask, rowsum
       //      (+ shadow) and the SNVR tracker; p is written over s ----
@@ -486,6 +493,7 @@
       }
     }
 
+    PHASE_MARK(4)
     // ---- V pass: GEMM II per n-slice, V column checksums, max|V| ----
     for (int sl = 0; sl < NS; ++sl) {
       float pv[2][4];    // tensor cores: this warp's two n-tiles
@@ -496,7 +504,9 @@
       for (int r = 0; r < RPW; ++r) pf[r][0] = pf[r][1] = 0.f;
       // this warp's n-tiles of the slice (mma): 8 columns each
       for (int ck = 0; ck < nc; ++ck) {
+        PHASE_MARK(5)
         const T* vb = acquire(nc + sl * nc + ck);
+        PHASE_MARK(10)
         const int c0 = ck * KC;
         if (sl == 0 && ft) {
           // this chunk's V column checksums, by the whole block (reading
@@ -516,6 +526,7 @@
             vcs2[e] = f2;
           }
           __syncthreads();
+          PHASE_MARK(11)
           // the O-checksum products of this warp's rows
           if (wact) {
             for (int p = lane; p < npo; p += 32) {
@@ -532,6 +543,7 @@
               ocb2[r * sout + i] = a2;
             }
           }
+          PHASE_MARK(12)
         }
         if (!gact) continue;
         if (tc) {
@@ -638,7 +650,9 @@
         }
       }
     }
+    PHASE_MARK(5)
     __syncthreads();  // the ring is free for the next block's prologue
+    PHASE_MARK(6)
   }
 
   // ---- the block's running max|V| (only ever read by the clamp) ----
@@ -726,3 +740,5 @@
     for (int i = 0; i < NT / 32; ++i) tot += redi[i * 5 + tid];
     P.rep[((size_t)bh * P.n_q * P.n_sub + tile) * 5 + tid] = tot;
   }
+  PHASE_MARK(7)
+  PHASE_FLUSH

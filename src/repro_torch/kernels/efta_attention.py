@@ -403,9 +403,12 @@ _MAX_GROUPS = 4
 # groups a thread block of the narrow and workspace layouts and of the
 # cluster layout, fold segments of the EXP pass's per-thread array, the
 # GEMM II n-tiles a warp of the cluster layout (D <= 256), and the shared
-# memory a thread block may take on Hopper (227 KB)
+# memory a thread block may take on Hopper (227 KB); the tile layout's
+# groups a CTA, GEMM II n-tiles a warpgroup (D <= 128) and least scores of
+# a query tile's KV block
 _WPG, _KERNEL_GROUPS, _CL_GROUPS, _MAX_G, _CL_NT, _SMEM_LIMIT = (
     4, 2, 4, 32, 8, 232448)
+_TL_GROUPS, _TL_NT, _TL_MIN_SCORES = 4, 4, 8192
 # streaming multiprocessors of an H100 SXM: the meta route sizes the wide
 # path's persistent grid, and its workspace, as for that card
 H100_SMS = 132
@@ -415,8 +418,10 @@ class Tiling(NamedTuple):
     """The kernel's choice for one call's shapes: 16-row groups a thread
     block, keys a streamed chunk, ring stages, thread blocks an SM, the
     workspace path (scores in a global workspace), the K-fold planes in the
-    workspace too, shared-memory bytes, workspace floats a slot, and the
-    thread blocks a cluster of the cluster layout (0: another layout)."""
+    workspace too, shared-memory bytes, workspace floats a slot (the tile
+    layout: the fold pass's floats a KV head and KV block), the thread
+    blocks a cluster of the cluster layout (0: another layout), and the
+    tile layout."""
 
     W: int
     KC: int
@@ -427,11 +432,12 @@ class Tiling(NamedTuple):
     smem: int
     slot_floats: int
     cluster: int
+    tile: int
 
     @property
     def layout(self) -> str:
-        """"narrow", "cluster" or "workspace"."""
-        return ("cluster" if self.cluster else
+        """"tile", "narrow", "cluster" or "workspace"."""
+        return ("tile" if self.tile else "cluster" if self.cluster else
                 "workspace" if self.wide else "narrow")
 
 
@@ -472,14 +478,43 @@ def _cluster_layout(W, KC, ST, D, Bc, skv, sout, esz, n) -> int:
     return sum((n + 15) & ~15 for n in parts)
 
 
+def _fold_floats(D, Bc, skv, sout) -> int:
+    """Floats of the tile layout's fold-pass output for one KV head and KV
+    block: ``make_fold`` (the K folds, the V checksums as bf16 pairs, and
+    max|V| of each of the blocks of 256 threads, one checksum entry a
+    thread, that share it)."""
+    ldc = ((2 * sout + 7) & ~7) + 8
+    splits = -(-Bc * ldc // 256)
+    return 2 * skv * D + Bc * ldc + ((splits + 3) & ~3)
+
+
+def _tile_layout(KC, ST, D, Bc, skv, sout) -> int:
+    """Shared-memory bytes of one CTA of the tile layout:
+    ``make_tile_layout``."""
+    TR = 16 * _TL_GROUPS
+    ldc = ((2 * sout + 7) & ~7) + 8
+    lds = (Bc + (skv if skv < 32 else 0) + 3) & ~3
+    ldo, ldf = D + 1, D + 4
+    parts = (ST * (KC * D * 2 + KC * ldc * 4), TR * D * 2, 2 * skv * ldf * 4,
+             4 * max(TR * lds, TR * ldo), 2 * TR * skv * 4,
+             2 * TR * sout * 4, (8 * TR + 4) * 4, _TL_GROUPS * _WPG * 8 * 4,
+             2 * ST * 8)
+    return sum((n + 15) & ~15 for n in parts)
+
+
 def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
            s_out: int, max_groups: int = _MAX_GROUPS,
            unified: bool = True) -> Optional[Tiling]:
     """The kernel's tiling of these shapes, or None where it takes none:
     ``choose_tiles`` of ``csrc/efta_attention.cu``, in Python, so that the
-    meta route needs no build. The narrow layout (scores in shared memory)
-    wherever it fits: two thread blocks an SM before one, then the most
-    rows, the widest chunk, the deepest ring. Else the cluster layout
+    meta route needs no build. The tile layout wherever it holds the
+    shapes (bf16, ``unified``, ``block_q`` >= 64 with ``block_q`` x
+    ``block_kv`` >= 8,192 and 4 row groups allowed, ``block_kv`` <= 1,024,
+    ``s_kv`` a power of two from 2 to 32, ``g_kv`` <= 32, D <= 128) and
+    fits: the widest chunk (128, 64, 32 keys), then the deepest ring.
+    Else the narrow layout (scores in shared memory) wherever it fits:
+    two thread blocks an SM before one, then the most rows, the widest
+    chunk, the deepest ring. Else the cluster layout
     where it holds the shapes (``unified``, ``s_kv`` a power of two over
     8, 4 or 2 CTAs with at most 32 residues a CTA, ``g_kv`` <= 32, D <=
     256): chunks of 128 or 64 keys before narrower ones, then the most
@@ -491,6 +526,19 @@ def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
             or sout <= 0 or D % sout or not _slice_of(D)):
         return None
     esz = 4 if dtype_code == 0 else 2
+    if (esz == 2 and unified and block_q >= 16 * _TL_GROUPS
+            and block_q * Bc >= _TL_MIN_SCORES
+            and max_groups >= _TL_GROUPS and Bc <= 1024 and 2 <= skv <= 32
+            and not skv & (skv - 1) and Bc // skv <= _MAX_G
+            and D <= 32 * _TL_NT):
+        for kc in (128, 64, 32):
+            for st in (3, 2):
+                if kc > Bc or Bc % kc:
+                    continue
+                smem = _tile_layout(kc, st, D, Bc, skv, sout)
+                if smem <= _SMEM_LIMIT:
+                    return Tiling(_TL_GROUPS, kc, st, 1, 0, 0, smem,
+                                  _fold_floats(D, Bc, skv, sout), 0, 1)
     wmax = min(-(-block_q // 16), max_groups, _KERNEL_GROUPS)
     ws = range(wmax, 0, -1)
     if 2 <= skv <= 32 and not skv & (skv - 1) and Bc // skv <= _MAX_G:
@@ -501,7 +549,7 @@ def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
                 continue
             smem, _ = _layout(w, kc, st, D, Bc, skv, sout, esz, 0, 0)
             if smem <= _SMEM_LIMIT // per_sm:
-                return Tiling(w, kc, st, per_sm, 0, 0, smem, 0, 0)
+                return Tiling(w, kc, st, per_sm, 0, 0, smem, 0, 0, 0)
     wcl = min(-(-block_q // 16), max_groups, _CL_GROUPS)
     if (unified and skv >= 2 and not skv & (skv - 1)
             and Bc // skv <= _MAX_G and D <= 32 * _CL_NT):
@@ -516,7 +564,7 @@ def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
                                                    sout, esz, n)
                             if smem <= _SMEM_LIMIT:
                                 return Tiling(w, kc, st, 1, 0, 0, smem, 0,
-                                              n)
+                                              n, 0)
     for g_kf in (0, 1):
         for kc in (64, 32, 16):
             for per_sm in (2, 1):
@@ -528,7 +576,7 @@ def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
                                              esz, 1, g_kf)
                         if smem <= _SMEM_LIMIT // per_sm:
                             return Tiling(w, kc, st, per_sm, 1, g_kf, smem,
-                                          slot, 0)
+                                          slot, 0, 0)
     return None
 
 
@@ -557,7 +605,7 @@ def kernel_tiling(dtype_code: int, block_q: int, block_kv: int, d: int,
     """What the built kernel's C entry point ``efta_attention_tiles``
     chooses for these shapes (None: no tiling); :func:`tiling` mirrors
     it. Builds the kernel on first use."""
-    buf = (ctypes.c_int * 9)()
+    buf = (ctypes.c_int * 10)()
     n_sub = _lib().efta_attention_tiles(dtype_code, block_q, block_kv, d,
                                         s_kv, s_out, max_groups,
                                         int(unified), buf)
@@ -568,9 +616,10 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     """The kernel's route. A CUDA ``q`` launches the kernel. A meta ``q``
     takes the same checks, the same tiling (:func:`tiling`, the C rule in
     Python) and makes and sums the same tensors, the workspace path's
-    workspace among them (a persistent grid as on an H100; the other two
-    layouts allocate none), computing nothing, so a dry run counts what the
-    card does and refuses what it refuses."""
+    workspace (a persistent grid as on an H100) and the tile layout's
+    fold-pass output (one slot a KV head and KV block) among them; the
+    other layouts allocate none. It computes nothing, so a dry run counts
+    what the card does and refuses what it refuses."""
     dtype = q.dtype
     if dtype not in DTYPES:
         raise TypeError(f"efta_attention kernel takes float32 or bfloat16, "
@@ -597,7 +646,11 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     rep = torch.empty((BH, c.n_q * n_sub, 5), dtype=torch.int32,
                       device=q.device)
     ws, slots = None, 0
-    if t.wide:
+    if t.tile:
+        slots = c.b * c.h // c.grp * c.n_kv
+        ws = torch.empty((slots, t.slot_floats), dtype=torch.float32,
+                         device=q.device)
+    elif t.wide:
         sms = (torch.cuda.get_device_properties(q.device)
                .multi_processor_count if launch else H100_SMS)
         slots = min(BH * c.n_q * n_sub, t.per_sm * sms)

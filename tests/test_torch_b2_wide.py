@@ -115,9 +115,11 @@ def test_tiling_mirror_takes_the_dry_runs_blocks():
                     # each 16-row group in the workspace
                     assert t.layout == "workspace" and t.cluster == 0, t
                     assert t.slot_floats >= 2 * 16 * t.W * bkv
-    # every tiling the first layout took keeps it
-    t = b2.tiling(1, 128, 512, 64, 16, 4)
+    # every tiling the first layout took keeps it, but where the tile
+    # layout takes the shapes (bf16, four row groups allowed)
+    t = b2.tiling(1, 128, 512, 64, 16, 4, max_groups=2)
     assert t.layout == "narrow" and (t.W, t.KC, t.ST) == (2, 64, 2)
+    assert b2.tiling(1, 128, 512, 64, 16, 4).layout == "tile"
     # deepseek's prefill: 64 rows a cluster (bf16), 32 at D 256
     t = b2.tiling(1, 128, 2048, 128, 64, 8)
     assert (t.W, t.KC, t.ST, t.per_sm, t.cluster) == (4, 128, 2, 1, 8)

@@ -549,6 +549,103 @@ def test_contiguous_kernel_cluster_layout(regime, groups, dtype, site,
         assert int(det.sum()) >= 1
 
 
+# the tile layout (csrc/efta_attention_tile.cuh: a fold pass once per KV
+# head and KV block, then 64 query rows a CTA on wgmma) at the narrow
+# path's bf16 prefill regimes, fewer heads: kimi-k2's (D 112, 8 a KV head)
+# and arctic's (D 128, 7) causal bucket 512, bert-large's non-causal
+# encoder, the VLM's self and cross prefill at block_kv 64 (25 blocks of
+# the 1,600 rows), gpt2's bucket 512 and t5's cross prefill (64 rows to a
+# 512-row memory); held to _bound plus the p rounding slack (its GEMM I
+# sums in another order than the plain version's)
+B2_TILE = {"kimi_512": dict(H=16, Hkv=2, Sq=512, Skv=512, D=112, causal=True),
+           "arctic_512": dict(H=14, Hkv=2, Sq=512, Skv=512, D=128,
+                              causal=True),
+           "bert": dict(B=2, H=4, Hkv=4, Sq=512, Skv=512, D=64, causal=False),
+           "vlm_self": dict(H=8, Hkv=2, Sq=512, Skv=512, D=128, causal=True,
+                            bkv=64),
+           "vlm_cross": dict(H=8, Hkv=2, Sq=512, Skv=1600, D=128,
+                             causal=False, bkv=64),
+           "gpt2_512": dict(H=4, Hkv=4, Sq=512, Skv=512, D=64, causal=True),
+           "t5_cross": dict(H=8, Hkv=8, Sq=64, Skv=512, D=64, causal=False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B2_TILE))
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.ROWMAX,
+                                  Site.ROWSUM, Site.GEMM2])
+def test_contiguous_kernel_tile_layout(regime, site):
+    from repro_torch.kernels import efta_attention as mod
+    dev = cuda_or_skip()
+    shape = dict(B2_TILE[regime])
+    causal, bkv = shape.pop("causal"), shape.pop("bkv", 512)
+    q, k, v = _contig(dev, torch.bfloat16, seed=29, **shape)
+    cfg = EFTAConfig(mode="correct", block_kv=bkv)
+    bk, d = min(bkv, shape["Skv"]), shape["D"]
+    t = mod.kernel_tiling(mod.DTYPES[torch.bfloat16], min(128, shape["Sq"]),
+                          bk, d, cfg.kv_stride(bk), cfg.out_stride(d))
+    assert t.layout == "tile" and t.W == 4 and t.slot_floats > 0, t
+    row = shape["Sq"] - 1
+    blk = row // bk if causal else shape["Skv"] // bk - 1
+    fault = None if site is None else [int(site), blk, 1, row, 5, 30, 1, 0]
+    kw = dict(cfg=cfg, causal=causal, fault=fault)
+    out, det = efta_attention(q, k, v, **kw)
+    plain = efta_attention_torch(q, k, v, **kw)
+    bound = _wide_bound(plain, q, k, v, causal, None)
+    diff = np.abs(to_np(out.float()) - to_np(plain[0].float()))
+    assert (diff <= bound).all(), f"max |kernel - plain| {diff.max():.3e}"
+    np.testing.assert_array_equal(to_np(det), to_np(plain[1]))
+    if site is None:
+        assert int(det.sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP, Site.GEMM1):
+        assert int(det.sum()) >= 1
+
+
+# the tile layout under its other options: detect mode (bit 27), EFTA off,
+# a ragged kv_len that ends inside a KV block (non-causal) and a sliding
+# window (causal, the first blocks skipped for the last tiles), at 64-key
+# blocks
+B2_TILE_VARIANTS = {"detect": dict(mode="detect"), "off": dict(mode="off"),
+                    "ragged": dict(causal=False, kv_len=1000),
+                    "window": dict(window=200)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(B2_TILE_VARIANTS))
+@pytest.mark.parametrize("site", [None, Site.GEMM1, Site.EXP, Site.GEMM2])
+def test_contiguous_kernel_tile_layout_variants(variant, site):
+    from repro_torch.kernels import efta_attention as mod
+    dev = cuda_or_skip()
+    opt = dict(B2_TILE_VARIANTS[variant])
+    mode = opt.pop("mode", "correct")
+    causal = opt.pop("causal", True)
+    q, k, v = _contig(dev, torch.bfloat16, H=8, Hkv=2, Sq=512, Skv=1024,
+                      D=128, seed=31)
+    if causal:
+        k, v = k[:, :, :512].contiguous(), v[:, :, :512].contiguous()
+    cfg = EFTAConfig(mode=mode, block_kv=64)
+    t = mod.kernel_tiling(mod.DTYPES[torch.bfloat16], 128, 64, 128,
+                          cfg.kv_stride(64), cfg.out_stride(128))
+    assert t.layout == "tile", t
+    bit = 27 if mode == "detect" else 30
+    row = 511
+    blk = (opt.get("kv_len", 512) - 1) // 64 if not causal else row // 64
+    fault = None if site is None else [int(site), blk, 1, row, 5, bit, 1, 0]
+    kw = dict(cfg=cfg, causal=causal, fault=fault, **opt)
+    out, det = efta_attention(q, k, v, **kw)
+    plain = efta_attention_torch(q, k, v, **kw)
+    ref = to_np(plain[0].float())
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.where(fin, 0, to_np(out.float())),
+                                  np.where(fin, 0, ref))
+    bound = _wide_bound(plain, q, k, v, causal, opt.get("kv_len"),
+                        opt.get("window"))
+    diff = np.abs(to_np(out.float()) - ref)[fin]
+    assert (diff <= bound[fin]).all(), f"max |kernel - plain| {diff.max():.3e}"
+    np.testing.assert_array_equal(to_np(det), to_np(plain[1]))
+    if site is None or mode == "off":
+        assert int(det.sum()) == 0
+
+
 @pytest.mark.cuda
 def test_tiling_mirror_equals_the_kernels_rule():
     """``tiling`` (the C rule in Python, which the meta route takes)
@@ -557,7 +654,7 @@ def test_tiling_mirror_equals_the_kernels_rule():
     from repro_torch.kernels import efta_attention as mod
     cuda_or_skip()
     for code in (0, 1):
-        for bq in (16, 128):
+        for bq in (16, 64, 128):
             for mg in (1, 2, 4):
                 for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
                     for d in (64, 72, 112, 128, 160, 256):

@@ -1,18 +1,24 @@
-"""Where kernel B2's cluster layout spends its time at deepseek-coder-33b's
-32k prefill launch (56 query heads of 128 on 8 KV heads, 32,768 tokens,
-causal, block_kv 2,048, bf16, correct mode), phase by phase, on the card.
+"""Where kernel B2 spends its time in one regime, phase by phase, on the
+card: by default deepseek-coder-33b's 32k prefill launch (56 query heads
+of 128 on 8 KV heads, 32,768 tokens, causal, block_kv 2,048), or any of
+the narrow-path regimes of ``REGIMES``; bf16, correct mode.
 
-    PYTHONPATH=src python tools/b2_phase_split.py [--out FILE]
+    PYTHONPATH=src python tools/b2_phase_split.py [--regime NAME[,NAME..]]
+        [--out FILE]
 
 Builds ``csrc/efta_attention.cu`` with ``-DEFTA_PHASE_CLOCKS`` into
-``build/repro_torch/phase/`` (thread 0 of every CTA adds the ``clock64()``
-cycles between the kernel's phase marks) and makes this process's wrapper
-launch that build. Then it launches B2 on random inputs (seed 0) and
-prints one JSON line: the tiling, the cycles and share of each phase, and
-the launch's CUDA-event time with the clocks on. Thread 0 sits in the
-first row group, so a row phase's share is that group's, and waits for
-the other groups land in the next phase that ends in a barrier. Needs the
-card and ``nvcc``.
+``build/repro_torch/phase/`` (thread 0 of every thread block adds the
+``clock64()`` cycles between the kernel's phase marks; each layout carries
+the same marks; the tile layout's "fold check" mark closes its checksum
+products, and its "max" phase holds the fold check and the block max,
+which it takes in one pass) and makes this process's wrapper launch that
+build. Then it launches B2 on random inputs (seed 0) and prints one JSON
+line a regime: the tiling and layout, the cycles and share of each phase,
+and the launch's CUDA-event time with the clocks on (the tile layout's
+fold pass, a kernel of its own, included). Thread 0 sits in the first row
+group, so a row phase's share is that group's, and waits for the other
+groups land in the next phase that ends in a barrier. Needs the card and
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -26,13 +32,28 @@ PHASES = ("setup", "K pass: GEMM I, K folds", "fold check", "max",
           "EXP, rowsum", "V pass: GEMM II, V and O checksums", "block tail",
           "finalize", "cluster waits", "K-chunk waits", "V-chunk waits",
           "V checksums", "O-checksum products")
-HEADS, KV_HEADS, SEQ, DIM, BLOCK_KV, REPS = 56, 8, 32768, 128, 2048, 2
+# (B, H, Hkv, Sq, Skv, D, causal, block_kv, launches a timing)
+REGIMES = {
+    "deepseek": (1, 56, 8, 32768, 32768, 128, True, 2048, 2),
+    "kimi_512": (1, 64, 8, 512, 512, 112, True, 512, 20),
+    "arctic_512": (1, 56, 8, 512, 512, 128, True, 512, 20),
+    "bert": (8, 16, 16, 512, 512, 64, False, 512, 20),
+    "vlm_self": (8, 32, 8, 512, 512, 128, True, 64, 20),
+    "vlm_cross": (8, 32, 8, 512, 1600, 128, False, 64, 10),
+}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="", help="append the JSON line here")
+    ap.add_argument("--regime", default="deepseek",
+                    help="one or more of " + ", ".join(REGIMES) +
+                    ", comma-separated")
+    ap.add_argument("--out", default="", help="append the JSON lines here")
     args = ap.parse_args(argv)
+    names = args.regime.split(",")
+    unknown = [n for n in names if n not in REGIMES]
+    if unknown:
+        ap.error(f"unknown regime(s) {unknown}; choose from {list(REGIMES)}")
     import torch
     if not torch.cuda.is_available():
         print("b2_phase_split: no CUDA device", file=sys.stderr)
@@ -62,37 +83,41 @@ def main(argv=None) -> int:
             raise RuntimeError(f"reading the phase clocks: CUDA error {rc}")
         return list(buf)[:len(PHASES)]
 
-    g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn((1, h, SEQ, DIM), generator=g)
-               .to("cuda", torch.bfloat16)
-               for h in (HEADS, KV_HEADS, KV_HEADS))
-    cfg = EFTAConfig(mode="correct", block_kv=BLOCK_KV)
+    for name in names:
+        B, H, Hkv, Sq, Skv, D, causal, bkv, reps = REGIMES[name]
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn((B, h, s, D), generator=g)
+                   .to("cuda", torch.bfloat16)
+                   for h, s in ((H, Sq), (Hkv, Skv), (Hkv, Skv)))
+        cfg = EFTAConfig(mode="correct", block_kv=bkv)
 
-    def call():
-        return ea.efta_attention(q, k, v, cfg=cfg, causal=True)
+        def call():
+            return ea.efta_attention(q, k, v, cfg=cfg, causal=causal)
 
-    call()
-    torch.cuda.synchronize()
-    clocks()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    for _ in range(REPS):
         call()
-    ev[1].record()
-    torch.cuda.synchronize()
-    cyc = clocks()
-    t = ea.kernel_tiling(1, 128, BLOCK_KV, DIM, cfg.kv_stride(BLOCK_KV),
-                         cfg.out_stride(DIM))
-    line = json.dumps({
-        "what": "b2_phase_split", "device": torch.cuda.get_device_name(0),
-        "tiling": t._asdict(), "layout": t.layout,
-        "clocked_ms": ev[0].elapsed_time(ev[1]) / REPS,
-        "cycles": dict(zip(PHASES, cyc)),
-        "share": {p: c / sum(cyc) for p, c in zip(PHASES, cyc)}})
-    print(line, flush=True)
-    if args.out:
-        with open(args.out, "a") as f:
-            f.write(line + "\n")
+        torch.cuda.synchronize()
+        clocks()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            call()
+        ev[1].record()
+        torch.cuda.synchronize()
+        cyc = clocks()
+        t = ea.kernel_tiling(1, min(128, Sq), bkv, D, cfg.kv_stride(bkv),
+                             cfg.out_stride(D))
+        line = json.dumps({
+            "what": "b2_phase_split", "regime": name,
+            "device": torch.cuda.get_device_name(0),
+            "tiling": t._asdict(), "layout": t.layout,
+            "clocked_ms": ev[0].elapsed_time(ev[1]) / reps,
+            "cycles": dict(zip(PHASES, cyc)),
+            "share": {p: c / max(sum(cyc), 1) for p, c in zip(PHASES, cyc)}})
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        del q, k, v
     return 0
 
 
