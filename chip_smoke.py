@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-        [--only dist,vlm,train,dryrun,b2_wide,examples,b2_narrow]
+        [--only dist,vlm,train,dryrun,b2_wide,examples,b2_narrow,b1_chunk]
 
 Run from the root of a checkout. Phases, each printing one JSON line:
 
@@ -227,6 +227,18 @@ examples — the five ``examples_torch/`` scripts as subprocesses on the
              process with every B1 call held against the plain version
              on the same inputs (head_dim 16, block 16: a regime no other
              phase reaches): outputs within the bound, counts equal.
+b1_chunk — kernel B1's chunk path (``B1_CHUNK``: arctic's and kimi's C
+             64 steps with decode rows, phase 19's inputs, and a gpt2
+             prefill step), bf16, on the tile layout (a fold pass, then 64
+             rows a CTA on wgmma): W, G, ST and the layout; against the
+             plain version clean, under each compute-site SEU and a
+             resident flip (counts and bad planes equal, outputs within
+             ``out_bound`` plus ``p_rounding_slack``); device time a launch
+             with the fold pass and alone, the bound, SDPA in a CUDA graph;
+             and the launches the tile layout leaves on the first layout
+             (``B1_KEPT``: C 1 decode at gpt2, kimi and arctic, f32, the
+             per-step check), hashed and timed, to hold two checkouts to
+             each other (run in both, parent, change, change, parent).
 b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
              earlier phases timed and hashed with each one's layout (bf16
              on the tile layout where it holds the shapes), and a hash of
@@ -257,8 +269,8 @@ layout (narrow, tile, cluster or workspace), and B1's in those of phase 19
 under ``regimes``.
 
 The phases run in the order 1, 2, dist (while this process holds next
-to nothing on the card), 3-5, 7-9, 14-19, b2_wide, 22, 20, 23, dryrun,
-examples, 6, 10, 21, 11-13:
+to nothing on the card), 3-5, 7-9, 14-19, b1_chunk, b2_wide, 22, 20, 23,
+dryrun, examples, 6, 10, 21, 11-13:
 after profiled runs of a few hundred thousand launches the profiler
 drops kernel records from later windows (seen on the card), so the
 whole-run profiles (6, 10) and the profiled windows of 11-13 and 20-23
@@ -621,6 +633,26 @@ class Recorder:
         attn_mod.efta_paged_attention = kernel
 
 
+def zero_b1_counts():
+    """Zero B1's launch counts: the total and the wrapper's count by
+    (layout, chunk width), both kept where the kernel launches."""
+    from repro_torch.kernels.efta_paged import efta_paged_attention
+    efta_paged_attention.launches = 0
+    efta_paged_attention.launches_by_layout.clear()
+
+
+def b1_by_layout():
+    """B1's launches since :func:`zero_b1_counts` by the layout the wrapper
+    launched and the chunk width, {"tile C64": n, ...}; checked to add up
+    to the total."""
+    from repro_torch.kernels.efta_paged import efta_paged_attention
+    by = efta_paged_attention.launches_by_layout
+    check(sum(by.values()) == efta_paged_attention.launches,
+          f"B1 launches by layout {dict(by)} do not add up to "
+          f"{efta_paged_attention.launches}")
+    return {f"{lay} C{c}": n for (lay, c), n in sorted(by.items())}
+
+
 def serve_run(torch, np, model, params, prompts, *, n_new, faulted, seed):
     from repro_torch.core.fault import FaultSpec, Site
     from repro_torch.kernels.efta_paged import efta_paged_attention
@@ -640,7 +672,7 @@ def serve_run(torch, np, model, params, prompts, *, n_new, faulted, seed):
             Site.EXP, block=0, head=1, row=0, col=3, bit=27)})
     origin = {}
     step_ms = []
-    efta_paged_attention.launches = 0
+    zero_b1_counts()
     i = 0
     t_start = time.perf_counter()
     while eng.scheduler.has_work:
@@ -670,7 +702,8 @@ def serve_run(torch, np, model, params, prompts, *, n_new, faulted, seed):
     outs = {r.rid: np.asarray(r.generated, np.int32)
             for r in eng.scheduler.finished}
     return dict(eng=eng, outs=outs, origin=origin, step_ms=step_ms,
-                wall=wall, launches=efta_paged_attention.launches)
+                wall=wall, launches=efta_paged_attention.launches,
+                b1_by_layout=b1_by_layout())
 
 
 def phase_serve(torch, np, seed):
@@ -711,6 +744,11 @@ def phase_serve(torch, np, seed):
               f"{eng.stats.forwards} forward passes")
         check(eng.chunk_widths <= {1, 64}, f"{tag}: chunk widths "
               f"{sorted(eng.chunk_widths)}")
+        by = run["b1_by_layout"]
+        check(cfg.dtype != "bfloat16" or (by.get("tile C64", 0) > 0 and
+                                          "narrow C64" not in by),
+              f"{tag}: B1's width-64 launches not all on the tile layout: "
+              f"{by}")
     ce, fe = clean["eng"], faulted["eng"]
     check(ce.telemetry.summary()["detected"] == 0 and
           ce.paged_stats.kv_detected_blocks == 0,
@@ -737,6 +775,7 @@ def phase_serve(torch, np, seed):
           "requests": 16, "tokens": tokens,
           "steps": ce.stats.steps, "forwards": ce.stats.forwards,
           "launches": clean["launches"],
+          "b1_by_layout": clean["b1_by_layout"],
           "chunk_widths": sorted(ce.chunk_widths),
           "faulted_detected": det, "faulted_retries": fe.stats.retries,
           "kv_detected_blocks": fe.paged_stats.kv_detected_blocks,
@@ -1262,7 +1301,7 @@ def ring_run(torch, np, model, params, prompts, *, n_new, faults=None):
     for p in prompts:
         eng.submit(p, max_new_tokens=n_new)
     efta_attention.launches = 0
-    efta_paged_attention.launches = 0
+    zero_b1_counts()
     step_ms = []
     i = 0
     t_start = time.perf_counter()
@@ -1647,7 +1686,8 @@ def drive(torch, np, eng, prompts, n_new, *, faults_at=None,
           before_step=None, margins=False, profile_steps=None,
           step_times=False, split=False, router_ties=False):
     """Submit ``prompts`` and step ``eng`` to the end. Returns tokens per
-    rid, wall seconds, steps, B1 launches (counted from 0 here), and, with
+    rid, wall seconds, steps, B1 launches (counted from 0 here) in all and
+    by layout and chunk width, and, with
     ``margins``, (gap, max|logit|) of the row each token was sampled from;
     ``profile_steps`` (first, last) profiles that window of steps (CUDA
     activity) for the device's busy share, and with ``split`` (CPU activity
@@ -1667,7 +1707,7 @@ def drive(torch, np, eng, prompts, n_new, *, faults_at=None,
     prof = window = None
     busy = {}
     step_ms = []
-    efta_paged_attention.launches = 0
+    zero_b1_counts()
     i = 0
     t_start = time.perf_counter()
     while eng.scheduler.has_work:
@@ -1733,7 +1773,8 @@ def drive(torch, np, eng, prompts, n_new, *, faults_at=None,
     if not isinstance(profile_steps, dict):
         busy = busy.get(None)
     return dict(eng=eng, outs=[outs[r] for r in rids], wall=wall, steps=i,
-                launches=efta_paged_attention.launches, origin=origin,
+                launches=efta_paged_attention.launches,
+                b1_by_layout=b1_by_layout(), origin=origin,
                 ties_at=ties_at,
                 busy=busy, tokens=len(prompts) * n_new, step_ms=step_ms)
 
@@ -1814,6 +1855,7 @@ def run_line(run):
     return {"tokens_per_s": run["tokens"] / run["wall"], "wall_s": run["wall"],
             "steps": eng.stats.steps, "forwards": eng.stats.forwards,
             "b1_launches": run["launches"],
+            "b1_by_layout": run["b1_by_layout"],
             "acceptance_rate": eng.acceptance_rate,
             "device_busy": run["busy"]}
 
@@ -2710,6 +2752,201 @@ def phase_kernel_regimes(torch):
     return b1, b2
 
 
+# phase b1_chunk's regimes, the chunk path that B1's tile layout takes:
+# (query heads, KV heads, head_dim, seed, decode rows) at C 64, B 8 and
+# 64-block tables; the moe heads' are phase 19's bf16 C 64 inputs
+B1_CHUNK = {"arctic_c64": (56, 8, 128, 1974, True),
+            "kimi_c64": (64, 8, 112, 1964, True),
+            "gpt2_prefill": (12, 12, 64, 1990, False)}
+# and the launches it leaves on the first layout: (heads, KV heads,
+# head_dim, seed, C, dtype, unified output verification); the moe heads'
+# are phase 19's inputs
+B1_KEPT = {"gpt2_decode": (12, 12, 64, 1991, 1, "bfloat16", True),
+           "kimi_decode": (64, 8, 112, 1901, 1, "bfloat16", True),
+           "arctic_decode": (56, 8, 128, 1911, 1, "bfloat16", True),
+           "kimi_c64_f32": (64, 8, 112, 1964, 64, "float32", True),
+           "arctic_c64_per_step": (56, 8, 128, 1974, 64, "bfloat16",
+                                   False)}
+
+
+def b1_chunk_case(torch, name):
+    """The inputs and config of a ``B1_CHUNK`` or ``B1_KEPT`` regime."""
+    from repro_torch.core import checksum as cks
+    from repro_torch.core.efta import EFTAConfig
+    if name in B1_CHUNK:
+        H, Hkv, D, seed, rows = B1_CHUNK[name]
+        C, dtype, unified = 64, "bfloat16", True
+    else:
+        H, Hkv, D, seed, C, dtype, unified = B1_KEPT[name]
+        rows = C > 1
+    case = make_case(torch, cks, dtype=getattr(torch, dtype), B=8, H=H,
+                     Hkv=Hkv, D=D, C=C, seed=seed, decode_rows=rows)
+    return case, EFTAConfig(mode="correct", stride=128, block_kv=512,
+                            unified=unified)
+
+
+def b1_chunk_tiling(case, cfg):
+    """B1's tiling of a case (the built kernel's rule), or None in a
+    checkout from before the tile layout, whose wrapper has no rule to
+    ask (its kernel then runs the first layout)."""
+    from repro_torch.kernels import efta_paged as ep
+    rule = getattr(ep, "kernel_tiling", None)
+    if rule is None:
+        return None
+    q, k = case["q"], case["k"]
+    _, H, C, D = q.shape
+    hkv, bs = k.shape[1], k.shape[2]
+    return rule(ep.DTYPES[q.dtype], H // hkv * C, D, bs,
+                case["kc"].c1.shape[-2], cfg.kv_stride(bs),
+                cfg.out_stride(D), case["bt"].shape[1], cfg.unified)
+
+
+def b1_hash(torch, case, cfg):
+    """The clean output and an EXP-faulted one (request 1, KV head 1, row
+    0) hashed, with both detection vectors and the bad plane's sum."""
+    import hashlib
+    from repro_torch.kernels.efta_paged import efta_paged_attention
+    j = (int(case["kv_lens"][1]) - int(case["q_lens"][1])) // 16
+    got = call(efta_paged_attention, case, cfg)
+    got_f = call(efta_paged_attention, case, cfg,
+                 fault=[2, j, 1, 1, 0, 3, seu_bit("correct"), 1])
+    h = hashlib.sha1(got.out.float().cpu().numpy().tobytes() +
+                     got_f.out.float().cpu().numpy().tobytes())
+    return {"hash": h.hexdigest()[:16], "detected": got.detected.tolist(),
+            "detected_exp_seu": got_f.detected.tolist(),
+            "bad_blocks": int(got.bad_blocks.sum())}
+
+
+def b1_launched(fn):
+    """``fn()`` and the layouts of the B1 launches that the wrapper counted
+    in it, or None for them in a checkout whose wrapper does not count by
+    layout (from before the tile layout)."""
+    from repro_torch.kernels.efta_paged import efta_paged_attention
+    by = getattr(efta_paged_attention, "launches_by_layout", None)
+    n0 = dict(by or {})
+    out = fn()
+    if by is None:
+        return out, None
+    return out, sorted({k[0] for k, n in by.items() if n != n0.get(k, 0)})
+
+
+def phase_b1_chunk(torch, np, seed):
+    """B1's chunk path (``B1_CHUNK``: arctic's and kimi's C 64 steps with
+    decode rows, a gpt2 prefill step), bf16, correct mode: the layout the
+    kernel takes (the tile layout: a fold pass, then 64 rows a CTA on
+    wgmma) with W, G and ST; against the plain version clean, under each
+    compute-site SEU and a resident flip (counts and bad planes equal,
+    outputs within ``out_bound`` plus ``p_rounding_slack``); the
+    profiler's device time a launch (the fold pass included, and alone),
+    the bound, and SDPA in a CUDA graph; and the launches the tile layout
+    leaves on the first layout (``B1_KEPT``: C 1 decode, f32, the per-step
+    check), hashed and timed. Run in two checkouts in turns (this file
+    copied into the other's root; parent, change, change, parent), the
+    kept launches' hashes must agree and the times stand side by side."""
+    from repro_torch.core.fault import Site, flip_bit_at
+    from repro_torch.kernels.efta_paged import (efta_paged_attention,
+                                                efta_paged_attention_torch)
+    res = {}
+    for name in B1_CHUNK:
+        case, cfg = b1_chunk_case(torch, name)
+        t = b1_chunk_tiling(case, cfg)
+        check(t is None or t.layout == "tile",
+              f"b1_chunk {name}: the {t and t.layout} layout, not the tile "
+              f"layout")
+        slack = p_rounding_slack(torch, case)
+        got, launched = b1_launched(
+            lambda: call(efta_paged_attention, case, cfg))
+        check(launched in (None, ["tile"]),
+              f"b1_chunk {name}: launched on {launched}, not the tile layout")
+        ref = call(efta_paged_attention_torch, case, cfg)
+        torch.cuda.synchronize()
+        err = compare(torch, got, ref, f"b1_chunk {name} clean", slack)
+        check(int(got.detected.sum()) == 0 and not bool(got.bad_blocks.any()),
+              f"b1_chunk {name}: detections on clean input")
+        tol = max(out_tol(torch, ref.out), cfg.thresholds(torch.bfloat16)[2])
+        b, h = 1, 1
+        j = (int(case["kv_lens"][b]) - int(case["q_lens"][b])) // 16
+        seu = {}
+        for site in (Site.GEMM1, Site.EXP, Site.ROWMAX, Site.ROWSUM,
+                     Site.GEMM2):
+            desc = [int(site), j, b, h, 0, 3, seu_bit("correct"), 1]
+            got_f = call(efta_paged_attention, case, cfg, fault=desc)
+            ref_f = call(efta_paged_attention_torch, case, cfg, fault=desc)
+            err = max(err, compare(torch, got_f, ref_f,
+                                   f"b1_chunk {name} {site.name}", slack))
+            check(int(got_f.detected[b, :5].sum()) >= 1
+                  or site in (Site.GEMM1, Site.GEMM2),
+                  f"b1_chunk {name} {site.name}: SEU not detected")
+            fix = float((got_f.out.float() - ref.out.float()).abs().max())
+            check(fix <= tol, f"b1_chunk {name} {site.name}: corrected "
+                  f"output off the clean one by {fix:.3e} > {tol:.3e}")
+            seu[site.name] = got_f.detected[b].tolist()
+        jl = (int(case["kv_lens"][2]) - 1) // 16
+        kf = case["k"].clone()
+        hkv, D = kf.shape[1], kf.shape[3]
+        blk = int(case["bt"][2, jl])
+        flip_bit_at(kf, ((blk * hkv + 0) * 16 + 0) * D + 1,
+                    top_exponent_bit(kf))
+        got_k = call(efta_paged_attention, dict(case, k=kf), cfg)
+        ref_k = call(efta_paged_attention_torch, dict(case, k=kf), cfg)
+        err = max(err, compare(torch, got_k, ref_k,
+                               f"b1_chunk {name} resident flip", slack))
+        check(bool(got_k.bad_blocks[2, jl]) and
+              int(got_k.bad_blocks.sum()) == 1,
+              f"b1_chunk {name}: resident flip not flagged at its block")
+        kv_det = got_k.detected[2].tolist()
+        del kf, got_k, ref_k
+
+        def fn():
+            return call(efta_paged_attention, case, cfg)
+
+        cap = {"q": case["q"], "k": case["k"],
+               "args": [case["v"], case["kc"], case["vc"], case["bt"],
+                        case["kv_lens"], case["q_lens"]],
+               "kw": {"cfg": cfg, "window": None}}
+        nbytes, flops = launch_work(torch, cap)
+        peak = PEAK_FLOPS[str(case["q"].dtype)]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        lib = library_call(torch, cap)
+        res[name] = dict(
+            layout=t.layout if t else "narrow (no rule: a checkout from "
+                                      "before the tile layout)",
+            launched=launched, tiling=t._asdict() if t else None,
+            rows=int(case["q"].shape[1] // case["k"].shape[1]
+                     * case["q"].shape[2]),
+            q_lens_sum=int(case["q_lens"].sum()),
+            device_ms=device_ms(torch, fn, 20, name="efta_paged_kernel"),
+            fold_ms=(device_ms(torch, fn, 20, name="efta_paged_kernel_fold")
+                     if t and t.tile else None),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_device_ms=graph_ms(torch, lib, 20), max_abs_err=err,
+            seu=seu, kv_flip_det=kv_det, **b1_hash(torch, case, cfg))
+        res[name]["sdpa_ratio"] = time_ratio(res[name]["device_ms"],
+                                             res[name]["library_device_ms"])
+        del case, lib
+    kept = {}
+    for name in B1_KEPT:
+        case, cfg = b1_chunk_case(torch, name)
+        t = b1_chunk_tiling(case, cfg)
+        check(t is None or t.layout == "narrow",
+              f"b1_chunk {name}: the {t and t.layout} layout, not the first")
+        _, launched = b1_launched(
+            lambda: call(efta_paged_attention, case, cfg))
+        check(launched in (None, ["narrow"]),
+              f"b1_chunk {name}: launched on {launched}, not the first "
+              f"layout")
+        kept[name] = dict(
+            layout="narrow", launched=launched,
+            tiling=t._asdict() if t else None,
+            device_ms=device_ms(
+                torch, lambda: call(efta_paged_attention, case, cfg), 20,
+                name="efta_paged_kernel"), **b1_hash(torch, case, cfg))
+        del case
+    emit({"phase": "b1_chunk", "ok": True, "regimes": res, "kept": kept})
+    return res
+
+
 def exp_seu_on_decode_row(state):
     """faults_at for ``drive``: an EXP SEU (bit 27, KV block 0, query head
     1, row 0) on a decoding slot's row, every step until one is detected;
@@ -2764,6 +3001,7 @@ def moe_run_line(run):
     return {"tokens_per_s": run["tokens"] / run["wall"],
             "wall_s": run["wall"], "steps": eng.stats.steps,
             "forwards": eng.stats.forwards, "b1_launches": run["launches"],
+            "b1_by_layout": run["b1_by_layout"],
             "b1_per_forward": run["launches"] / max(eng.stats.forwards, 1),
             "step_ms_median": statistics.median(st) if st else None,
             "step_ms_p90": st[int(0.9 * (len(st) - 1))] if st else None,
@@ -4760,8 +4998,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run after device and "
                          "build (dist, vlm, train, dryrun, b2_wide, "
-                         "examples; b2_narrow runs only so), for "
-                         "bring-up; prints no result line")
+                         "examples, b1_chunk; b2_narrow runs only so), "
+                         "for bring-up; prints no result line")
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase dist
     ap.add_argument("--dist-dir", default="", help=argparse.SUPPRESS)
@@ -4781,7 +5019,7 @@ def main(argv=None) -> int:
                                                            card),
                 "vlm": phase_vlm, "train": phase_train,
                 "dryrun": phase_dryrun, "b2_wide": phase_b2_wide,
-                "b2_narrow": phase_b2_narrow,
+                "b2_narrow": phase_b2_narrow, "b1_chunk": phase_b1_chunk,
                 "examples": lambda torch, np, seed: phase_examples(torch)}
         for name in args.only.split(","):
             only[name](torch, np, args.seed)
@@ -4801,6 +5039,7 @@ def main(argv=None) -> int:
     entry_b2["regimes"].update(phase_encdec(torch, np, args.seed))
     entry_b2["regimes"].update(phase_decoupled(torch))
     b1_regimes, b2_regimes = phase_kernel_regimes(torch)
+    entry["chunk"] = phase_b1_chunk(torch, np, args.seed)
     entry_b2["regimes"].update(b2_regimes)
     entry_b2["regimes"].update(phase_b2_wide(torch, np, args.seed))
     # the VLM's B2 timings before phase 20's profiled windows: after them

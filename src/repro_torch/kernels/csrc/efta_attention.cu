@@ -231,33 +231,10 @@
 #include "efta_common.cuh"
 #include "efta_hopper.cuh"
 
-// Phase clocks, a build option for measurement only (-DEFTA_PHASE_CLOCKS;
-// the library that chip_smoke.py and the wrapper build never sets it):
-// thread 0 of every thread block adds the clock64() cycles between marks
-// to efta_phase_clk[k] (k: setup, K pass, fold check, max, EXP, V pass,
-// block tail, finalize, cluster waits, K-chunk waits, V-chunk waits, V
-// checksums and O-checksum products; the cluster layout's marks).
-// tools/b2_phase_split.py builds it and reads the split.
-#ifdef EFTA_PHASE_CLOCKS
-__device__ unsigned long long efta_phase_clk[16];
-#define PHASE_INIT                 \
-  long long ph_t = clock64();      \
-  long long ph_acc[16] = {};
-#define PHASE_MARK(k)                    \
-  if (threadIdx.x == 0) {                \
-    const long long ph_n = clock64();    \
-    ph_acc[k] += ph_n - ph_t;            \
-    ph_t = ph_n;                         \
-  }
-#define PHASE_FLUSH                                                  \
-  if (threadIdx.x == 0)                                              \
-    for (int ph_k = 0; ph_k < 16; ++ph_k)                            \
-      atomicAdd(&efta_phase_clk[ph_k], (unsigned long long)ph_acc[ph_k]);
-#else
-#define PHASE_INIT
-#define PHASE_MARK(k)
-#define PHASE_FLUSH
-#endif
+// Phase clocks (efta_common.cuh, -DEFTA_PHASE_CLOCKS): k is setup, K pass,
+// fold check, max, EXP, V pass, block tail, finalize, cluster waits,
+// K-chunk waits, V-chunk waits, V checksums and O-checksum products (the
+// cluster layout's marks). tools/b2_phase_split.py reads the split.
 
 namespace {
 
@@ -587,11 +564,7 @@ int efta_attention_tiles(int dtype, int block_q, int block_kv, int D,
 #ifdef EFTA_PHASE_CLOCKS
 // the phase clocks' 16 sums (cycles), then zeroed
 int efta_attention_phase_clocks(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, efta_phase_clk,
-                                         16 * sizeof(unsigned long long));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[16] = {};
-  return (int)cudaMemcpyToSymbol(efta_phase_clk, zero, sizeof(zero));
+  return efta_read_phase_clocks(out);
 }
 #endif
 

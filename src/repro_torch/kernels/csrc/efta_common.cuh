@@ -16,6 +16,42 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Phase clocks, a build option for measurement only (-DEFTA_PHASE_CLOCKS;
+// the libraries that chip_smoke.py and the wrappers build never set it):
+// thread 0 of every thread block adds the clock64() cycles between a
+// kernel's PHASE_MARKs to efta_phase_clk[k]; each library has its own
+// copy, read and zeroed by efta_read_phase_clocks behind its C entry point.
+// tools/b1_phase_split.py and tools/b2_phase_split.py build them.
+#ifdef EFTA_PHASE_CLOCKS
+__device__ unsigned long long efta_phase_clk[16];
+#define PHASE_INIT                 \
+  long long ph_t = clock64();      \
+  long long ph_acc[16] = {};
+#define PHASE_MARK(k)                    \
+  if (threadIdx.x == 0) {                \
+    const long long ph_n = clock64();    \
+    ph_acc[k] += ph_n - ph_t;            \
+    ph_t = ph_n;                         \
+  }
+#define PHASE_FLUSH                                                  \
+  if (threadIdx.x == 0)                                              \
+    for (int ph_k = 0; ph_k < 16; ++ph_k)                            \
+      atomicAdd(&efta_phase_clk[ph_k], (unsigned long long)ph_acc[ph_k]);
+
+// the phase clocks' 16 sums (cycles) into out, then zeroed
+static inline int efta_read_phase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, efta_phase_clk,
+                                         16 * sizeof(unsigned long long));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(efta_phase_clk, zero, sizeof(zero));
+}
+#else
+#define PHASE_INIT
+#define PHASE_MARK(k)
+#define PHASE_FLUSH
+#endif
+
 namespace {
 
 // fault sites (repro_torch.core.fault.Site)

@@ -73,10 +73,57 @@
 //   * Numerics (efta_common.cuh): f32 arithmetic, NaN-propagating min/max,
 //     shadows read through opaque(), folds in segment order, -fmad=false.
 //
+// The tile layout (efta_paged_kernel_tile and its fold pass,
+// efta_paged_tile.cuh) takes the chunk path in bf16 wherever it holds the
+// shapes: unified output verification, grp x C >= 64 rows (gpt2's prefill
+// steps, the moe heads' C 64 steps, speculative steps of 64 rows or
+// more), 16-key blocks at ABFT stride 4, D a multiple of 16 up to 128.
+// What held the first layout back there (PERF.md section 6 has its phase
+// split): each compute warp folded K at the ABFT stride and V's column
+// checksums of its block, so every block was folded once per row group and
+// again in each row tile (28-32 times per request and KV head at the moe
+// heads); K, V and the planes were streamed once per row tile; three block
+// barriers a step of 16-key blocks; and phase C's rescale of the 16 x D
+// accumulator ran on G warps a row group, one warp at arctic's D 128 (G
+// 1), 64 elements a lane a block in series.
+//   * A fold pass, once per (request, KV head, running block), before the
+//     tile kernel: the K folds as bf16 high and low parts, laid out as 16
+//     more rows of GEMM I's B operand, the V column checksums and max|V|,
+//     summed in segment order as the first layout sums them, and the site-6
+//     check against the resident planes, which writes the bad plane (det
+//     [5] is its sum over the running blocks, taken by row tile 0).
+//   * One CTA a tile of 64 rows of one (request, KV head): four consumer
+//     warpgroups and a producer warpgroup that gathers each step's four
+//     blocks through the block table (K, its fold rows, V, V's checksums)
+//     into an mbarrier ring of two or three stages (efta_hopper.cuh's
+//     machinery, as B2's tile layout). GEMM I: warpgroup k takes block k of
+//     the step as one wgmma m64 n32 over D (16 keys and the 16 fold rows:
+//     the scores and the checksum products Q fold(K)^T at once). Row phases
+//     on every warp, four rows each, lanes on (block, row, residue): the
+//     fold check and block max, the running max replayed through the step's
+//     blocks in order, EXP with its checks, then the rowsum, shadow, SNVR
+//     and O-checksum chains in block order. GEMM II: a wgmma m64 a block in
+//     block order over warpgroup k's share of D, p from registers, from
+//     zero, then acc = alpha acc + P V in registers; two consumer barriers
+//     a step.
+// Every tiling the first layout takes and the tile layout does not keeps
+// the first kernel, whose code is unchanged.
+//
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
 
 #include "efta_common.cuh"
+#include "efta_hopper.cuh"
+
+// Phase clocks: efta_common.cuh (-DEFTA_PHASE_CLOCKS); tools/b1_phase_split.py
+// names each layout's marks. -DEFTA_PAGED_FIRST_LAYOUT, which only that
+// tool's `--layout narrow` build sets, keeps every shape on the first
+// layout, as the kernel ran before the tile layout.
+#ifdef EFTA_PAGED_FIRST_LAYOUT
+constexpr bool FIRST_LAYOUT_ONLY = true;
+#else
+constexpr bool FIRST_LAYOUT_ONLY = false;
+#endif
 
 namespace {
 
@@ -284,6 +331,7 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
   // (unified = 0) sequential f32 FMAs, the plain version's order, whose
   // count of columns at the check's absolute threshold follows it
   const bool tc = BF && P.unified;
+  PHASE_INIT
 
   // warps 0 .. W*G-1 compute (row group rg, block slot gs); with EFTA on,
   // G more verify the slots' blocks against their resident planes
@@ -413,12 +461,14 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
     cp_async_commit();
   }
   __syncthreads();
+  PHASE_MARK(0)
 
   for (int step = 0; step < n_steps; ++step) {
     cp_async_wait(ST - 2);
     __syncthreads();  // step's blocks landed; the stage refilled next is free
     if (step + ST - 1 < n_steps) issue(step + ST - 1);
     cp_async_commit();
+    PHASE_MARK(1)
     const int n0 = step * G, gv = min(G, n_run - n0);
     const bool mine = gs < gv;  // this warp has a block in the step
     const int j = j_lo + n0 + gs, kv_start = j * bs;
@@ -577,7 +627,9 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
         if (i == 0) rb[RB_BM * 16 + r] = bm;
       }
     }
+    PHASE_MARK(2)
     __syncthreads();
+    PHASE_MARK(3)
 
     // ---- phase B: each slot's block, at its place in the sequence ----
     if (compute && gact && mine) {
@@ -737,7 +789,9 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
         }
       }
     }
+    PHASE_MARK(4)
     __syncthreads();
+    PHASE_MARK(3)
 
     // ---- phase C: the step's blocks into the running state, in order:
     //      rescale + rowsum (+ shadow), SNVR, GEMM II + O checksums ----
@@ -843,6 +897,7 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
         }
       }
     }
+    PHASE_MARK(5)
   }
 
   // ---- max|V| from the verify warps (read only by the clamp) ----
@@ -906,6 +961,7 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
       for (int d = lane; d < D; d += 32) og[r * D + d] = from_f<T>(acc[r * ldo + d]);
     }
   }
+  PHASE_MARK(6)
 
   // ---- the block's partial counts: warps in order, no atomics ----
   int* redi = (int*)(red + MAX_THREADS / 32);
@@ -920,6 +976,45 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
     for (int i = 0; i < NT / 32; ++i) tot += redi[i * 6 + tid];
     rep[tid] = tot;
   }
+  PHASE_MARK(7)
+  PHASE_FLUSH
+}
+
+#include "efta_paged_tile.cuh"
+
+// the tile layout's rule: bf16, unified output verification, grp x C >= 64
+// rows, 16-key blocks at ABFT stride 4, D a multiple of 16 up to 128, s_out
+// up to 32; three ring stages, else two, within the SM's shared memory
+bool choose_ptile(int R, int D, int bs, int cs, int skv, int sout, int esz,
+                  int unified, int* ST) {
+  if (FIRST_LAYOUT_ONLY || esz != 2 || !unified || R < PT_ROWS || bs != PT_BS || skv != PT_SKV ||
+      D % 16 || D > 32 * PT_NT2 || sout <= 0 || sout > 32 || D % sout ||
+      cs <= 0 || bs % cs || (cs * D * esz) % 16)
+    return false;
+  for (int st = 3; st >= 2; --st) {
+    if (make_ptile_layout(st, D, sout).total <= SMEM_LIMIT) {
+      *ST = st;
+      return true;
+    }
+  }
+  return false;
+}
+
+// the tile layout: the fold pass, then one CTA for each 64-row tile
+cudaError_t launch_ptile(const PTParams& c, cudaStream_t stream) {
+  const size_t bytes = c.L.total;
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  efta_paged_kernel_fold<<<dim3(c.P.mb, c.P.Hkv, c.P.B), PT_FOLD_THREADS, 0,
+                           stream>>>(c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(efta_paged_kernel_tile,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  efta_paged_kernel_tile<<<dim3(c.P.n_tiles, c.P.Hkv, c.P.B),
+                           PT_NT + PRODUCER_THREADS, bytes, stream>>>(c);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -941,22 +1036,52 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Row tiles per (request, kv head) for these shapes, or 0 when the kernel
-// takes no tiling of them. dtype as below.
-int efta_paged_tiles(int dtype, int R, int D, int bs, int cs, int s_kv,
-                     int s_out, int mb) {
-  int W, G, ST;
-  if (!choose_tiles(R, D, bs, cs, s_kv, s_out, dtype == 0 ? 4 : 2, mb, &W,
-                    &G, &ST))
-    return 0;
-  return (R + 16 * W - 1) / (16 * W);
+// takes no tiling of them. dtype as below; unified as the launch's. With
+// `tiling` (6 ints, or NULL) also the choice:
+// {row groups W, blocks a step G, ring stages ST, shared-memory bytes, the
+// fold pass's floats a (request, KV head, block) (0 but on the tile
+// layout), the tile layout}.
+int efta_paged_tiling(int dtype, int R, int D, int bs, int cs, int s_kv,
+                      int s_out, int mb, int unified, int* tiling) {
+  const int esz = dtype == 0 ? 4 : 2;
+  int W = 0, G = 0, ST = 0, smem = 0, floats = 0, n = 0;
+  const bool pt = choose_ptile(R, D, bs, cs, s_kv, s_out, esz, unified, &ST);
+  if (pt) {
+    W = PT_ROWS / 16;
+    G = PT_G;
+    smem = (int)make_ptile_layout(ST, D, s_out).total;
+    floats = make_pfold(D, s_out).floats;
+    n = (R + PT_ROWS - 1) / PT_ROWS;
+  } else {
+    if ((cs * D * esz) % 16 ||
+        !choose_tiles(R, D, bs, cs, s_kv, s_out, esz, mb, &W, &G, &ST))
+      return 0;
+    smem = (int)make_layout(W, G, ST, D, bs, cs, s_kv, s_out, esz, mb).total;
+    n = (R + 16 * W - 1) / (16 * W);
+  }
+  if (tiling) {
+    const int v[6] = {W, G, ST, smem, floats, pt ? 1 : 0};
+    for (int i = 0; i < 6; ++i) tiling[i] = v[i];
+  }
+  return n;
 }
+
+#ifdef EFTA_PHASE_CLOCKS
+// the phase clocks' 16 sums (cycles), then zeroed
+int efta_paged_phase_clocks(unsigned long long* out) {
+  return efta_read_phase_clocks(out);
+}
+#endif
 
 const char* efta_paged_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools, checksum planes and out).
-// Pointers are device pointers; the launch goes on `stream`.
+// Pointers are device pointers; rep is (B, Hkv, tiles, 6) int32. Where the
+// tiling takes the tile layout, ws holds the fold pass's (B, Hkv, mb) slots
+// (efta_paged_tiling gives the floats a slot); else it is unused. The
+// launch goes on `stream`.
 int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
                       const void* kc1, const void* kc2, const void* vc1,
                       const void* vc2, const void* bt, const void* kv_lens,
@@ -966,7 +1091,7 @@ int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
                       float kv_thr, float eps1, float eps2, float eps3,
                       int mode, int unified, int shadow_rowsum,
                       int shadow_rowmax, int f0, int f1, int f2, int f3,
-                      int f4, int f5, int f6, int f7, void* stream) {
+                      int f4, int f5, int f6, int f7, void* ws, void* stream) {
   if (B <= 0 || Hkv <= 0 || R <= 0 || mb <= 0 || chunk <= 0 || bs % cs ||
       bs % s_kv || D % s_out || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
@@ -995,14 +1120,6 @@ int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
   p.s_kv = s_kv;
   p.s_out = s_out;
   p.window = window;
-  const int esz = dtype == 0 ? 4 : 2;
-  if ((cs * D * esz) % 16 ||
-      !choose_tiles(R, D, bs, cs, s_kv, s_out, esz, mb, &p.W, &p.G, &p.ST))
-    return (int)cudaErrorInvalidValue;
-  p.DS = slice_of(D);
-  p.L = make_layout(p.W, p.G, p.ST, D, bs, cs, s_kv, s_out, esz, mb);
-  p.n_tiles = (R + 16 * p.W - 1) / (16 * p.W);
-  if (p.n_tiles > 65535) return (int)cudaErrorInvalidValue;
   p.scale = scale;
   p.kv_thr = kv_thr;
   p.eps1 = eps1;
@@ -1015,6 +1132,24 @@ int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
   const int f[8] = {f0, f1, f2, f3, f4, f5, f6, f7};
   for (int i = 0; i < 8; ++i) p.fault[i] = f[i];
   cudaStream_t s = (cudaStream_t)stream;
+  const int esz = dtype == 0 ? 4 : 2;
+  if (choose_ptile(R, D, bs, cs, s_kv, s_out, esz, unified, &p.ST)) {
+    p.n_tiles = (R + PT_ROWS - 1) / PT_ROWS;
+    if (ws == nullptr || B > 65535) return (int)cudaErrorInvalidValue;
+    PTParams c;
+    c.P = p;
+    c.L = make_ptile_layout(p.ST, D, s_out);
+    c.F = make_pfold(D, s_out);
+    c.ws = (float*)ws;
+    return (int)launch_ptile(c, s);
+  }
+  if ((cs * D * esz) % 16 ||
+      !choose_tiles(R, D, bs, cs, s_kv, s_out, esz, mb, &p.W, &p.G, &p.ST))
+    return (int)cudaErrorInvalidValue;
+  p.DS = slice_of(D);
+  p.L = make_layout(p.W, p.G, p.ST, D, bs, cs, s_kv, s_out, esz, mb);
+  p.n_tiles = (R + 16 * p.W - 1) / (16 * p.W);
+  if (p.n_tiles > 65535) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       dtype == 0 ? launch<float>(p, s) : launch<__nv_bfloat16>(p, s);
   return (int)err;

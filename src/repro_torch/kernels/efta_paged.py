@@ -26,6 +26,7 @@ tile-row (group_row * C + chunk_row), col, bit, enabled] — one SEU per call.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -149,7 +150,8 @@ def efta_paged_attention(
     descriptor. Returns a :class:`PagedReport` whose ``out`` matches ``q``.
 
     A CPU ``q`` runs the plain version; a CUDA ``q`` launches the kernel
-    (``efta_paged_attention.launches`` counts those launches).
+    (``efta_paged_attention.launches`` counts those launches, and
+    ``.launches_by_layout`` them by (layout, chunk width)).
     """
     call = _prepare(q, k_pool, k_checks, block_tables, kv_lens, q_lens,
                     cfg=cfg, check_threshold=check_threshold, window=window,
@@ -160,7 +162,6 @@ def efta_paged_attention(
     elif q.device.type == "cuda":
         out, rep, bad = _paged_cuda(call, k_pool, v_pool, k_checks, v_checks,
                                     block_tables, kv_lens, cfg)
-        efta_paged_attention.launches += 1
         # a call without its work: that depends on the tables' contents
         record_launch("efta_paged_attention")
     else:
@@ -170,6 +171,7 @@ def efta_paged_attention(
 
 
 efta_paged_attention.launches = 0
+efta_paged_attention.launches_by_layout = collections.Counter()
 
 
 def efta_paged_attention_torch(q, k_pool, v_pool, k_checks, v_checks,
@@ -459,20 +461,177 @@ _ARGTYPES = ([ctypes.c_int]                        # dtype code
              + [ctypes.c_float] * 5                # scale kv_thr eps1-3
              + [ctypes.c_int] * 4                  # mode unified shadows
              + [ctypes.c_int] * 8                  # fault descriptor
+             + [ctypes.c_void_p]                   # fold scratch
              + [ctypes.c_void_p])                  # stream
 
+# csrc/efta_paged.cu's constants: one SM's shared memory, the first
+# layout's threads a block and fold segments; the tile layout's rows a CTA,
+# blocks a step, keys a block, ABFT stride, GEMM II n-tiles a warpgroup
+_SMEM_LIMIT = 232448
+_MAX_THREADS = 512
+_MAX_G = 32
+_PT_ROWS, _PT_G, _PT_BS, _PT_SKV, _PT_NT2 = 64, 4, 16, 4, 4
 
-def _lib():
-    lib = _build.load("efta_paged")
+
+class PagedTiling(NamedTuple):
+    """The kernel's choice for one call's shapes: 16-row groups a thread
+    block W, KV blocks a step G, ring stages ST, shared-memory bytes, the
+    fold pass's floats a (request, KV head, block) (0 but on the tile
+    layout) and the tile layout."""
+
+    W: int
+    G: int
+    ST: int
+    smem: int
+    fold_floats: int
+    tile: int
+
+    @property
+    def layout(self) -> str:
+        """"tile" or "narrow" (the first layout)."""
+        return "tile" if self.tile else "narrow"
+
+    @property
+    def rows(self) -> int:
+        """Rows of a thread block: a tile of the rows of one (request, KV
+        head)."""
+        return _PT_ROWS if self.tile else 16 * self.W
+
+
+def _up16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _slice_of(d: int) -> int:
+    return next((ds for ds in (64, 48, 32, 16) if d % ds == 0), 0)
+
+
+def _layout(W, G, ST, D, bs, cs, skv, sout, esz, mb) -> int:
+    """Shared-memory bytes of the first layout: ``make_layout``."""
+    ldk = D + 8 if esz == 2 else D + 1
+    lds = bs + (skv if skv < 32 else 0)
+    lds += lds & 1
+    ldo, ldf = D + 1, D + 4
+    blk = 2 * _up16(bs * ldk * esz) + 4 * _up16(cs * D * esz)
+    c_all = sum(_up16(n) for n in (16 * lds * 4, 2 * skv * ldf * 4,
+                                   2 * bs * sout * 4, 16 * ldo * 4,
+                                   16 * skv * 4, 2 * 16 * sout * 4,
+                                   8 * 16 * 4))
+    r_all = sum(_up16(n) for n in (16 * ldk * esz, 16 * ldo * 4,
+                                   2 * 16 * sout * 4, 8 * 16 * 4))
+    return (ST * G * blk + W * G * c_all + W * r_all + _up16(mb * 4)
+            + _up16(_MAX_THREADS // 32 * 8 * 4))
+
+
+def _fold_floats(D, sout) -> int:
+    """Floats of the fold pass's output for one (request, KV head, block):
+    ``make_pfold`` (the K-fold rows as 16 x D bf16, the V column checksums
+    16 x ldv, max|V| padded to 16 bytes)."""
+    return 8 * D + _PT_BS * ((2 * sout + 3) & ~3) + 4
+
+
+def _tile_layout(ST, D, sout) -> int:
+    """Shared-memory bytes of one CTA of the tile layout:
+    ``make_ptile_layout``."""
+    ldv = (2 * sout + 3) & ~3
+    lds, ldo = _PT_G * _PT_BS + 4, D + 1
+    slot = 48 * D * 2 + _PT_BS * ldv * 4
+    parts = (ST * _PT_G * slot, _PT_ROWS * D * 2,
+             4 * max(2 * _PT_ROWS * lds, _PT_ROWS * ldo),
+             _PT_G * 2 * _PT_ROWS * _PT_SKV * 4,
+             ((5 + 7 * _PT_G) * _PT_ROWS + 4) * 4, 2 * _PT_ROWS * sout * 4,
+             16 * 8 * 4, 2 * ST * 8)
+    return sum(_up16(n) for n in parts)
+
+
+def tiling(dtype_code: int, R: int, D: int, bs: int, cs: int, s_kv: int,
+           s_out: int, mb: int, unified: bool = True
+           ) -> Optional[PagedTiling]:
+    """The kernel's tiling of these shapes, or None where it takes none:
+    ``efta_paged_tiling`` of ``csrc/efta_paged.cu`` in Python
+    (``tests/test_torch_cuda.py`` holds the two equal on the card). The
+    tile layout wherever it holds the shapes (bf16, ``unified``, R = grp x
+    C >= 64, 16-key blocks at ABFT stride 4, D a multiple of 16 up to 128,
+    ``s_out`` up to 32, the check stride dividing the block): three ring
+    stages before two. Else :func:`_first_tiling`."""
+    esz = 4 if dtype_code == 0 else 2
+    if (esz == 2 and unified and R >= _PT_ROWS and bs == _PT_BS
+            and s_kv == _PT_SKV and D % 16 == 0 and D <= 32 * _PT_NT2
+            and 0 < s_out <= 32 and D % s_out == 0 and cs > 0
+            and bs % cs == 0 and cs * D * esz % 16 == 0):
+        for st in (3, 2):
+            smem = _tile_layout(st, D, s_out)
+            if smem <= _SMEM_LIMIT:
+                return PagedTiling(_PT_ROWS // 16, _PT_G, st, smem,
+                                   _fold_floats(D, s_out), 1)
+    return _first_tiling(esz, R, D, bs, cs, s_kv, s_out, mb)
+
+
+def _first_tiling(esz, R, D, bs, cs, s_kv, s_out, mb):
+    """The first layout's tiling (``choose_tiles``), or None: the fewest
+    16-row groups that cover R (at most 4), then the most blocks a step (at
+    most 8, within 512 threads), then the deepest ring, within the SM's
+    shared memory."""
+    if (R <= 0 or D % 16 or bs % 16 or bs > 64 or not 2 <= s_kv <= 32
+            or s_kv & (s_kv - 1) or bs % s_kv or bs // s_kv > _MAX_G
+            or not 0 < s_out <= 32 or D % s_out or cs <= 0 or bs % cs
+            or not _slice_of(D) or cs * D * esz % 16):
+        return None
+    for w in range(min(-(-R // 16), 4), 0, -1):
+        for g in range(8, 0, -1):
+            if (w * g + g) * 32 > _MAX_THREADS:
+                continue
+            for st in (3, 2):
+                smem = _layout(w, g, st, D, bs, cs, s_kv, s_out, esz, mb)
+                if smem <= _SMEM_LIMIT:
+                    return PagedTiling(w, g, st, smem, 0, 0)
+    return None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry points' argument and result types on a loaded
+    ``efta_paged`` library."""
     if not getattr(lib, "_efta_bound", False):
         lib.efta_paged_launch.argtypes = _ARGTYPES
         lib.efta_paged_launch.restype = ctypes.c_int
-        lib.efta_paged_tiles.argtypes = [ctypes.c_int] * 8
-        lib.efta_paged_tiles.restype = ctypes.c_int
+        lib.efta_paged_tiling.argtypes = ([ctypes.c_int] * 9
+                                          + [ctypes.POINTER(ctypes.c_int)])
+        lib.efta_paged_tiling.restype = ctypes.c_int
         lib.efta_paged_error_string.argtypes = [ctypes.c_int]
         lib.efta_paged_error_string.restype = ctypes.c_char_p
         lib._efta_bound = True
     return lib
+
+
+def _lib():
+    return bind(_build.load("efta_paged"))
+
+
+def kernel_tiling(dtype_code: int, R: int, D: int, bs: int, cs: int,
+                  s_kv: int, s_out: int, mb: int, unified: bool = True
+                  ) -> Optional[PagedTiling]:
+    """What the built kernel's C entry point ``efta_paged_tiling`` chooses
+    for these shapes (None: no tiling); :func:`tiling` mirrors it. Builds
+    the kernel on first use."""
+    buf = (ctypes.c_int * 6)()
+    n = _lib().efta_paged_tiling(dtype_code, R, D, bs, cs, s_kv, s_out, mb,
+                                 int(unified), buf)
+    return PagedTiling(*buf) if n > 0 else None
+
+
+def fold_scratch(t: PagedTiling, B: int, hkv: int, mb: int, device):
+    """The tile layout's fold-pass output, one slot of ``t.fold_floats``
+    f32 for each (request, KV head, table block), uninitialised (the pass
+    writes every running block's slot before the tile kernel reads it);
+    None on the first layout."""
+    if not t.tile:
+        return None
+    return torch.empty((B, hkv, mb, t.fold_floats), dtype=torch.float32,
+                       device=device)
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
@@ -503,18 +662,19 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     ints = [t.to(device=dev, dtype=torch.int32).contiguous()
             for t in (block_tables, kv_lens, call.q_lens)]
     lib = _lib()
-    # row tiles per (request, kv head): up to 4 groups of 16 rows each
-    n_tiles = lib.efta_paged_tiles(DTYPES[dtype], R, D, bs, cs, call.s_kv,
-                                   call.s_out, mb)
+    buf = (ctypes.c_int * 6)()
+    n_tiles = lib.efta_paged_tiling(DTYPES[dtype], R, D, bs, cs, call.s_kv,
+                                    call.s_out, mb, int(cfg.unified), buf)
     if n_tiles <= 0:
         raise ValueError(f"efta_paged kernel: block {bs} (strides {cs}, "
                          f"{call.s_kv}) x head_dim {D} has no tiling that "
                          f"fits one thread block")
+    t = PagedTiling(*buf)
     out = torch.empty_like(qr)
     rep = torch.empty((B, hkv, n_tiles, 6), dtype=torch.int32, device=dev)
     bad = torch.empty((B, hkv, mb), dtype=torch.int32, device=dev)
+    ws = fold_scratch(t, B, hkv, mb, dev)
     eps1, eps2, eps3 = call.eps
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.efta_paged_launch(
         DTYPES[dtype], qr.data_ptr(), *(t.data_ptr() for t in planes),
         *(t.data_ptr() for t in ints),
@@ -522,11 +682,15 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
         B, hkv, R, call.chunk, D, bs, cs, mb, call.s_kv, call.s_out,
         call.window, call.scale, call.kv_thr, eps1, eps2, eps3,
         MODES[cfg.mode], int(cfg.unified), int(cfg.shadow_rowsum),
-        int(cfg.shadow_rowmax), *call.fault, stream)
+        int(cfg.shadow_rowmax), *call.fault,
+        None if ws is None else ws.data_ptr(), _stream(dev))
     if rc != 0:
+        # no fallback: the layout the rule chose launches, or the call fails
         msg = lib.efta_paged_error_string(rc).decode()
-        raise RuntimeError(f"efta_paged kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+        raise RuntimeError(f"efta_paged kernel ({t.layout} layout) launch "
+                           f"failed: CUDA error {rc} ({msg})")
+    efta_paged_attention.launches += 1
+    efta_paged_attention.launches_by_layout[(t.layout, call.chunk)] += 1
     # per-row-tile partial counts, summed here: no atomics, deterministic
     return out, rep.sum(dim=(1, 2), dtype=torch.int32), bad.any(dim=1)
 

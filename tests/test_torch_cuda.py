@@ -667,3 +667,187 @@ def test_tiling_mirror_equals_the_kernels_rule():
                                           unified)
                                 assert mod.tiling(*shapes) == \
                                     mod.kernel_tiling(*shapes), shapes
+
+
+# --- kernel B1's tile layout (csrc/efta_paged_tile.cuh) ----------------------
+
+@pytest.mark.cuda
+def test_paged_tiling_mirror_equals_the_kernels_rule():
+    """``efta_paged.tiling`` (the C rule in Python) against the built
+    kernel's ``efta_paged_tiling``, refusals included."""
+    from repro_torch.kernels import efta_paged as mod
+    cuda_or_skip()
+    for code in (0, 1):
+        for R in (1, 7, 8, 16, 48, 63, 64, 70, 448, 512, 1024):
+            for d in (16, 48, 64, 112, 128, 160, 256):
+                for bs, cs in ((16, 8), (16, 16), (32, 8), (64, 8)):
+                    for skv in (2, 4, 8):
+                        for mb in (8, 64):
+                            for unified in (True, False):
+                                shapes = (code, R, d, bs, cs, skv,
+                                          EFTAConfig().out_stride(d), mb,
+                                          unified)
+                                assert mod.tiling(*shapes) == \
+                                    mod.kernel_tiling(*shapes), shapes
+
+
+def _tile_case(dev, *, grp, hd, seed, hkv=2, mb=16, full=False, shared=0):
+    """A C 64 step of 4 requests for the tile layout: a whole chunk, a
+    decode row (63 padding rows), an idle slot (no rows: its blocks are
+    streamed and verified all the same) and a ragged half chunk, over
+    fragmented tables; ``full``: request 0 fills a 64-block table;
+    ``shared``: requests 0 and 1 share their first ``shared`` blocks, as
+    two requests with one prompt prefix do."""
+    g = torch.Generator().manual_seed(seed)
+    B, C, bs = 4, 64, 16
+    if full:
+        mb = 64
+    lens = torch.randint(C + shared * bs, mb * bs + 1, (B,), generator=g)
+    if full:
+        lens[0] = mb * bs
+    need = [-(-int(n) // bs) for n in lens]
+    nb = sum(need) + 2
+    ids = (torch.randperm(nb, generator=g) + 1).tolist()
+    bt = torch.zeros((B, mb), dtype=torch.int32)
+    for b in range(B):
+        own = need[b] - (shared if b == 1 else 0)
+        row = ([int(x) for x in bt[0, :shared]] if b == 1 else []) + \
+            [ids.pop() for _ in range(own)]
+        bt[b, :need[b]] = torch.tensor(row, dtype=torch.int32)
+    k = torch.randn((nb + 1, hkv, bs, hd), generator=g)
+    v = torch.randn((nb + 1, hkv, bs, hd), generator=g)
+    q = torch.randn((B, hkv * grp, C, hd), generator=g)
+    k, v, q = (x.to(dev, torch.bfloat16) for x in (k, v, q))
+    q_lens = torch.tensor([64, 1, 0, 33], dtype=torch.int32, device=dev)
+    return [q, k, v, cks.encode_kv(k, 8), cks.encode_kv(v, 8), bt.to(dev),
+            lens.int().to(dev), q_lens]
+
+
+def _tile_slack(args, window, fault=None):
+    """2^-7 (P |V|) per output element, P the masked softmax in f32: how far
+    rounding p to bf16 for P V can move an output where the kernel and the
+    plain version round a p next to a bf16 boundary differently (their f32
+    scores differ in the last bits). ``fault``: an EXP SEU left in place
+    (detect mode) struck one p, which renormalises its row's P, so P is
+    taken from the struck numerators."""
+    q, k_pool, v_pool, _, _, bt, lens, q_lens = args
+    B, H, C, D = q.shape
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    mb = bt.shape[1]
+    idx = bt.long()
+    k = k_pool[idx].permute(0, 2, 1, 3, 4).reshape(B, hkv, mb * bs, D)
+    v = v_pool[idx].permute(0, 2, 1, 3, 4).reshape(B, hkv, mb * bs, D)
+    k = k.repeat_interleave(H // hkv, dim=1).float()
+    v = v.repeat_interleave(H // hkv, dim=1).float().abs()
+    pos = (lens - q_lens).long()[:, None] + torch.arange(C, device=q.device)
+    cols = torch.arange(mb * bs, device=q.device)
+    win = 1 << 30 if window is None else window
+    mask = ((cols[None, None, :] <= pos[:, :, None])
+            & (pos[:, :, None] - cols[None, None, :] < win)
+            & (torch.arange(C, device=q.device)[None, :, None]
+               < q_lens.long()[:, None, None]))[:, None]
+    s = torch.matmul(q.float(), k.transpose(-1, -2)) / float(D) ** 0.5
+    s = s.masked_fill(~mask, float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True).clamp(min=-1e30))
+    if fault is not None and fault[0] == int(Site.EXP):
+        j, b, h, row, col, bit = fault[1:7]
+        grp = H // hkv
+        at = (b, h * grp + row // C, row % C, j * bs + col)
+        flip_bit_at(e, int(np.ravel_multi_index(at, e.shape)), bit)
+    p = e / e.sum(-1, keepdim=True)
+    return to_np(2.0 ** -7 * torch.matmul(p.nan_to_num(0.0), v))
+
+
+# kernel B1's tile layout at the moe heads (arctic D 128 / grp 7, kimi D
+# 112 / grp 8, output strides 8 and 7) and gpt2's (D 64, grp 1), a C 64
+# step; every SEU strikes request 0 (a whole chunk), KV head 1, a chunk row
+# of its last query head, in a block the row sees
+B1_TILE = {"arctic": dict(grp=7, hd=128), "kimi": dict(grp=8, hd=112),
+           "gpt2": dict(grp=1, hd=64)}
+B1_TILE_RUNS = ["clean", "GEMM1", "EXP", "ROWMAX", "ROWSUM", "GEMM2",
+                "detect_EXP", "detect_GEMM1", "off", "k_flip", "v_flip",
+                "v_flip_grow", "window", "full_table", "shared_prefix"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B1_TILE))
+@pytest.mark.parametrize("run", B1_TILE_RUNS)
+def test_paged_kernel_tile_layout(regime, run):
+    from repro_torch.kernels import efta_paged as mod
+    dev = cuda_or_skip()
+    shape = B1_TILE[regime]
+    args = _tile_case(dev, seed=41 + B1_TILE_RUNS.index(run), **shape,
+                      full=run == "full_table",
+                      shared=8 if run == "shared_prefix" else 0)
+    mode = ("detect" if run.startswith("detect") else
+            "off" if run == "off" else "correct")
+    cfg = EFTAConfig(mode=mode, stride=128, block_kv=16)
+    window = 200 if run == "window" else None
+    q, k = args[0], args[1]
+    hkv, bs, d = k.shape[1], k.shape[2], k.shape[3]
+    t = mod.kernel_tiling(mod.DTYPES[torch.bfloat16], shape["grp"] * 64, d,
+                          bs, 8, cfg.kv_stride(bs), cfg.out_stride(d),
+                          args[5].shape[1], True)
+    assert t.layout == "tile" and t.fold_floats > 0, t
+    fault = None
+    site = run.split("_")[-1]
+    if site in Site.__members__:
+        row = (shape["grp"] - 1) * 64 + 5
+        j = (int(args[6][0]) - 64 + 5) // bs
+        fault = [int(Site[site]), j, 0, 1, row, 3,
+                 27 if mode == "detect" else 30, 1]
+    if run.startswith(("k_flip", "v_flip")):
+        # a resident flip (top bf16 exponent bit) in request 3's last block,
+        # KV head 1. "v_flip" strikes an element of V of magnitude 2 or
+        # more, which it shrinks by 2^-128; "v_flip_grow" one under 1,
+        # which it grows by 2^128, so P V overflows in request 3's rows
+        i = 1 if run == "k_flip" else 2
+        pool = args[i].clone()
+        blk = int(args[5][3, (int(args[6][3]) - 1) // bs])
+        at = ((blk * hkv + 1) * bs + 2) * d + 5
+        if run != "k_flip":
+            tile = pool[blk, 1].float().abs().flatten()
+            pick = tile >= 2 if run == "v_flip" else tile < 1
+            at = (blk * hkv + 1) * bs * d + int(torch.nonzero(pick)[0])
+        flip_bit_at(pool, at, 14)
+        args[i] = pool
+    got = efta_paged_attention(*args, cfg=cfg, fault=fault, window=window)
+    plain = efta_paged_attention_torch(*args, cfg=cfg, fault=fault,
+                                       window=window)
+    if run == "v_flip_grow":
+        # the output check's locate step has no defined segment once an
+        # output is inf or NaN, in either version: only the site-6 check
+        # (det[5], the bad plane), which flags the block for the engine to
+        # repair, and the requests that never read the block are held
+        np.testing.assert_array_equal(to_np(got.bad_blocks),
+                                      to_np(plain.bad_blocks))
+        det, det_plain = to_np(got.detected), to_np(plain.detected)
+        np.testing.assert_array_equal(det[:, 5], det_plain[:, 5])
+        assert det[3, 5] == 1 and to_np(got.bad_blocks).sum() == 1
+        np.testing.assert_array_equal(det[:3], det_plain[:3])
+        ref = to_np(plain.out.float())[:3]
+        diff = np.abs(to_np(got.out.float())[:3] - ref)
+        bound = _bound(plain.out[:3]) + _tile_slack(args, window)[:3]
+        assert np.isfinite(ref).all() and (diff <= bound).all()
+        return
+    ref = to_np(plain.out.float())
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.where(fin, 0, to_np(got.out.float())),
+                                  np.where(fin, 0, ref))
+    bound = _bound(plain.out) + _tile_slack(
+        args, window, fault if mode == "detect" else None)
+    diff = np.abs(to_np(got.out.float()) - ref)[fin]
+    assert (diff <= bound[fin]).all(), \
+        f"max |kernel - plain| {diff.max():.3e} over its bound"
+    np.testing.assert_array_equal(to_np(got.detected), to_np(plain.detected))
+    np.testing.assert_array_equal(to_np(got.bad_blocks),
+                                  to_np(plain.bad_blocks))
+    det = to_np(got.detected)
+    if run in ("clean", "off", "window", "full_table", "shared_prefix"):
+        assert det.sum() == 0 and not to_np(got.bad_blocks).any()
+    elif run in ("k_flip", "v_flip"):
+        assert det[3, 5] == 1 and to_np(got.bad_blocks).sum() == 1
+    elif mode == "correct" and site in ("EXP", "ROWMAX", "ROWSUM", "GEMM1"):
+        # (in bf16 a flip that shrinks p stays under the EXP check's
+        # relative threshold of 1; in correct mode the backstop counts it)
+        assert det[0, :5].sum() >= 1, det

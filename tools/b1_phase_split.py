@@ -1,0 +1,88 @@
+"""Where kernel B1 spends its time at a chunk-path regime, phase by phase, on
+the card: arctic-480b's and kimi-k2's C 64 steps with decode rows (phase
+19's bf16 inputs) and a gpt2 prefill step, each in ``B1_CHUNK`` of
+``chip_smoke.py``; bf16, correct mode.
+
+    PYTHONPATH=src python tools/b1_phase_split.py [--regime NAME[,NAME..]]
+        [--layout tile|narrow] [--out FILE]
+
+Builds ``csrc/efta_paged.cu`` with its phase clocks on (``phase_clocks.py``)
+and launches B1 on the regime's inputs on the layout its rule takes
+(``--layout tile``, the default), or with ``-DEFTA_PAGED_FIRST_LAYOUT``
+on the first layout for the same shapes (``--layout narrow``: the kernel
+as it ran before the tile layout). One JSON line a regime: the tiling (W,
+G, ST, shared bytes, layout), the cycles and share of each phase of that
+layout, and the launch's CUDA-event time with the clocks on (the tile
+layout's fold pass, a kernel of its own without marks, included). Thread
+0 sits in the first row group (the first layout) or the first warpgroup
+(the tile layout), so a row phase's share is its rows', and waits for the
+other warps land in the barrier that follows. Needs the card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import phase_clocks
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PHASES = {
+    "narrow": ("setup", "load waits", "A: K/V folds, GEMM I, ABFT, block max",
+               "block barriers", "B: running max, EXP, rowsum, GEMM II, "
+               "O-checksum products", "C: running state",
+               "max|V|, finalize", "counts"),
+    "tile": ("setup", "K/V waits", "GEMM I and checksum products",
+             "barrier after GEMM I", "fold check, block max",
+             "running max, EXP, rowsum terms", "running state, O checksums",
+             "barriers before GEMM II and the finalize", "GEMM II, rescale",
+             "finalize"),
+}
+
+
+def main(argv=None) -> int:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--regime", default=",".join(cs.B1_CHUNK),
+                    help="one or more of " + ", ".join(cs.B1_CHUNK) +
+                    ", comma-separated")
+    ap.add_argument("--layout", default="tile", choices=sorted(PHASES))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default="", help="append the JSON lines here")
+    args = ap.parse_args(argv)
+    names = args.regime.split(",")
+    unknown = [n for n in names if n not in cs.B1_CHUNK]
+    if unknown:
+        ap.error(f"unknown regime(s) {unknown}; choose from "
+                 f"{list(cs.B1_CHUNK)}")
+    import torch
+    if not torch.cuda.is_available():
+        print("b1_phase_split: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import efta_paged as ep
+
+    defines = ["-DEFTA_PAGED_FIRST_LAYOUT"] if args.layout == "narrow" else []
+    try:
+        clocks = phase_clocks.build("efta_paged", ep.bind, defines)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 1
+    for name in names:
+        case, cfg = cs.b1_chunk_case(torch, name)
+        t = cs.b1_chunk_tiling(case, cfg)
+        if t.layout != args.layout:
+            print(f"b1_phase_split: {name} takes the {t.layout} layout, not "
+                  f"{args.layout}", file=sys.stderr)
+            return 1
+        phase_clocks.split(
+            torch, "b1_phase_split", name,
+            lambda: cs.call(ep.efta_paged_attention, case, cfg), clocks,
+            PHASES[args.layout], args.reps, t, args.out)
+        del case
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

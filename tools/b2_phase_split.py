@@ -6,13 +6,11 @@ the narrow-path regimes of ``REGIMES``; bf16, correct mode.
     PYTHONPATH=src python tools/b2_phase_split.py [--regime NAME[,NAME..]]
         [--out FILE]
 
-Builds ``csrc/efta_attention.cu`` with ``-DEFTA_PHASE_CLOCKS`` into
-``build/repro_torch/phase/`` (thread 0 of every thread block adds the
-``clock64()`` cycles between the kernel's phase marks; each layout carries
-the same marks; the tile layout's "fold check" mark closes its checksum
-products, and its "max" phase holds the fold check and the block max,
-which it takes in one pass) and makes this process's wrapper launch that
-build. Then it launches B2 on random inputs (seed 0) and prints one JSON
+Builds ``csrc/efta_attention.cu`` with its phase clocks on
+(``phase_clocks.py``; each layout carries the same marks; the tile
+layout's "fold check" mark closes its checksum products, and its "max"
+phase holds the fold check and the block max, which it takes in one
+pass). Then it launches B2 on random inputs (seed 0) and prints one JSON
 line a regime: the tiling and layout, the cycles and share of each phase,
 and the launch's CUDA-event time with the clocks on (the tile layout's
 fold pass, a kernel of its own, included). Thread 0 sits in the first row
@@ -23,10 +21,9 @@ groups land in the next phase that ends in a barrier. Needs the card and
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import subprocess
 import sys
+
+import phase_clocks
 
 PHASES = ("setup", "K pass: GEMM I, K folds", "fold check", "max",
           "EXP, rowsum", "V pass: GEMM II, V and O checksums", "block tail",
@@ -59,30 +56,13 @@ def main(argv=None) -> int:
         print("b2_phase_split: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.core.efta import EFTAConfig
-    from repro_torch.kernels import _build
     from repro_torch.kernels import efta_attention as ea
 
-    out = _build.BUILD_DIR / "phase" / "libefta_attention.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(
-        _build._command("efta_attention", out, ["-DEFTA_PHASE_CLOCKS"]),
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        print(proc.stdout + proc.stderr, file=sys.stderr)
+    try:
+        clocks = phase_clocks.build("efta_attention", ea.bind)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
         return 1
-    lib = ea.bind(ctypes.CDLL(str(out)))
-    lib.efta_attention_phase_clocks.argtypes = [
-        ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.efta_attention_phase_clocks.restype = ctypes.c_int
-    _build._loaded["efta_attention"] = lib  # this process launches it
-
-    def clocks() -> list:
-        buf = (ctypes.c_ulonglong * 16)()
-        rc = lib.efta_attention_phase_clocks(buf)   # read, then zeroed
-        if rc != 0:
-            raise RuntimeError(f"reading the phase clocks: CUDA error {rc}")
-        return list(buf)[:len(PHASES)]
-
     for name in names:
         B, H, Hkv, Sq, Skv, D, causal, bkv, reps = REGIMES[name]
         g = torch.Generator().manual_seed(0)
@@ -90,33 +70,12 @@ def main(argv=None) -> int:
                    .to("cuda", torch.bfloat16)
                    for h, s in ((H, Sq), (Hkv, Skv), (Hkv, Skv)))
         cfg = EFTAConfig(mode="correct", block_kv=bkv)
-
-        def call():
-            return ea.efta_attention(q, k, v, cfg=cfg, causal=causal)
-
-        call()
-        torch.cuda.synchronize()
-        clocks()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        for _ in range(reps):
-            call()
-        ev[1].record()
-        torch.cuda.synchronize()
-        cyc = clocks()
         t = ea.kernel_tiling(1, min(128, Sq), bkv, D, cfg.kv_stride(bkv),
                              cfg.out_stride(D))
-        line = json.dumps({
-            "what": "b2_phase_split", "regime": name,
-            "device": torch.cuda.get_device_name(0),
-            "tiling": t._asdict(), "layout": t.layout,
-            "clocked_ms": ev[0].elapsed_time(ev[1]) / reps,
-            "cycles": dict(zip(PHASES, cyc)),
-            "share": {p: c / max(sum(cyc), 1) for p, c in zip(PHASES, cyc)}})
-        print(line, flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(line + "\n")
+        phase_clocks.split(
+            torch, "b2_phase_split", name,
+            lambda: ea.efta_attention(q, k, v, cfg=cfg, causal=causal),
+            clocks, PHASES, reps, t, args.out)
         del q, k, v
     return 0
 
