@@ -121,8 +121,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              under ``efta_pallas``: f32 tokens equal plain ``efta``'s
              (near ties aside); B2 launches by regime (encoder, decoder
              prefill, cross prefill Sq 64 -> 512, cross decode Sq 1 ->
-             512); each regime against the plain version (clean and five
-             SEUs), timed with its bound and SDPA.
+             512) and, counted by the wrapper, by layout (every Sq 1
+             launch on the decode layout); each regime against the plain
+             version (clean and five SEUs), timed with its bound and SDPA.
 18. decoupled — the decoupled baseline against B2 (B 1, H 12, D 64, causal,
              bf16) at S 512-4096: both against ``reference_attention``,
              GEMM1/EXP/GEMM2 SEUs at S 512, device times and their ratio,
@@ -166,7 +167,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              under ``efta`` and under ``efta_pallas`` with ``block_kv`` 64,
              B2 launches 40 at the self prefill, 8 at the cross prefill
              (512 -> 1600) and 8 a decode step at the cross decode (1 ->
-             1600), nothing detected; each regime against its plain
+             1600; counted by layout: every one on the decode layout),
+             nothing detected; each regime against its plain
              version (clean and five SEUs) and timed, in bf16 and f32;
              tokens/s, step times, busy share of a profiled prefill and
              decode, peak memory; f32 at 10 layers: tokens equal plain
@@ -208,8 +210,9 @@ b2_wide  — kernel B2 at the dry run's wide KV blocks (past its narrow
              ``p_rounding_slack``), timed with bound and SDPA, with each
              case's tiling, cluster size, registers and spills; (b) the
              Python tiling mirror (the meta route's rule) against the
-             kernel's ``efta_attention_tiles`` on 9,504 shapes (with and
-             without unified verification); (c) deepseek-coder-33b at
+             kernel's ``efta_attention_tiles`` on 12,672 shapes (block_q
+             1 to 128, with and without unified verification); (c)
+             deepseek-coder-33b at
              full width, 2 of 62 layers, bf16, ``Model.prefill`` of 32,768
              tokens under ``efta_pallas`` at block_kv 2,048 (2 B2
              launches, cluster layout): the dry run's one-rank prediction
@@ -240,8 +243,10 @@ b1_chunk — kernel B1's chunk path (``B1_CHUNK``: arctic's and kimi's C
              per-step check), hashed and timed, to hold two checkouts to
              each other (run in both, parent, change, change, parent).
 b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
-             earlier phases timed and hashed with each one's layout (bf16
-             on the tile layout where it holds the shapes), and a hash of
+             earlier phases and its two cross-attention decode regimes
+             (t5, the VLM) timed and hashed with each one's layout (bf16
+             on the tile layout where it holds the shapes, Sq 1 on the
+             decode layout), and a hash of
              the narrow and the tile kernels' SASS (``cuobjdump -sass``),
              to hold two checkouts' kernels to each other
              (``phase_b2_narrow``).
@@ -366,16 +371,21 @@ def ptxas_summary(log):
     ..."} (B2's ``efta_attention_kernel_wide`` and ``..._kernel_cluster``,
     whose two instantiations hold 4 and 8 GEMM II n-tiles a warp, and the
     tile layout's two bf16 kernels, ``..._kernel_tile`` and its fold pass
-    ``..._kernel_fold``)."""
+    ``..._kernel_fold``; and the decode layout's three passes, {"bf16" |
+    "f32"} + " decode score" | " decode exp" | " decode state")."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = "bf16 tile" if "kernel_tile" in ln else \
-                "bf16 fold" if "kernel_fold" in ln else \
-                ("bf16" if "bfloat16" in ln else "f32") + (
-                    " workspace" if "kernel_wide" in ln else
-                    (" cluster D<=128" if "Li4E" in ln else " cluster D<=256")
-                    if "kernel_cluster" in ln else "")
+            dt = "bf16" if "bfloat16" in ln else "f32"
+            dec = next((k for k in ("score", "exp", "state")
+                        if f"kernel_d{k}" in ln), None)
+            name = ("bf16 tile" if "kernel_tile" in ln else
+                    "bf16 fold" if "kernel_fold" in ln else
+                    f"{dt} decode {dec}" if dec else
+                    dt + (" workspace" if "kernel_wide" in ln else
+                          (" cluster D<=128" if "Li4E" in ln
+                           else " cluster D<=256")
+                          if "kernel_cluster" in ln else ""))
         elif name and ("spill" in ln or "registers" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":")[-1].strip()
                          ).strip()
@@ -651,6 +661,36 @@ def b1_by_layout():
           f"B1 launches by layout {dict(by)} do not add up to "
           f"{efta_paged_attention.launches}")
     return {f"{lay} C{c}": n for (lay, c), n in sorted(by.items())}
+
+
+def zero_b2_counts():
+    """Zero B2's launch counts: the total and the wrapper's count by
+    (layout, Sq), both kept where the kernel launches."""
+    from repro_torch.kernels.efta_attention import efta_attention
+    efta_attention.launches = 0
+    efta_attention.launches_by_layout.clear()
+
+
+def b2_by_layout():
+    """B2's launches since :func:`zero_b2_counts` by the layout the wrapper
+    launched and Sq, {"decode Sq1": n, ...}; checked to add up to the
+    total."""
+    from repro_torch.kernels.efta_attention import efta_attention
+    by = efta_attention.launches_by_layout
+    check(sum(by.values()) == efta_attention.launches,
+          f"B2 launches by layout {dict(by)} do not add up to "
+          f"{efta_attention.launches}")
+    return {f"{lay} Sq{sq}": n for (lay, sq), n in sorted(by.items())}
+
+
+def check_decode_launches(by, what):
+    """Every Sq 1 launch of B2 in ``by`` (:func:`b2_by_layout`) took the
+    decode layout."""
+    other = {k: n for k, n in by.items()
+             if k.endswith(" Sq1") and not k.startswith("decode ")}
+    check(not other and by.get("decode Sq1", 0) > 0,
+          f"{what}: B2's Sq 1 launches {by} did not all take the decode "
+          f"layout")
 
 
 def serve_run(torch, np, model, params, prompts, *, n_new, faulted, seed):
@@ -1300,7 +1340,7 @@ def ring_run(torch, np, model, params, prompts, *, n_new, faults=None):
     eng = ServeEngine(model, params, n_slots=8, cache_len=1024)
     for p in prompts:
         eng.submit(p, max_new_tokens=n_new)
-    efta_attention.launches = 0
+    zero_b2_counts()
     zero_b1_counts()
     step_ms = []
     i = 0
@@ -1441,10 +1481,10 @@ def b2_regime_numbers(torch, cap, p_rounding=False, reps=(50, 20),
     time on the same q/k/v, and the layout the kernel takes there.
     ``p_rounding``: bf16 outputs may also differ by ``p_rounding_slack``
     (phase 19's regimes); so may they wherever the launch takes the tile
-    layout, whose GEMM I (wgmma) sums in another order than the narrow
-    layout's, so that a p next to a bf16 rounding boundary may round
-    either way. ``reps``: the calls of the event and of the profiled
-    windows."""
+    or the decode layout, whose GEMM I (wgmma; mma.sync on 8 rows) sums
+    in another order than the narrow layout's, so that a p next to a bf16
+    rounding boundary may round either way. ``reps``: the calls of the
+    event and of the profiled windows."""
     import torch.nn.functional as F
     from repro_torch.core.efta import EFTAConfig
     from repro_torch.core.fault import Site
@@ -1462,7 +1502,8 @@ def b2_regime_numbers(torch, cap, p_rounding=False, reps=(50, 20),
                                cfg.unified)
     worst, seu = 0.0, {}
     slack = None
-    if (p_rounding or tiling.layout == "tile") and q.dtype == torch.bfloat16:
+    if ((p_rounding or tiling.layout in ("tile", "decode"))
+            and q.dtype == torch.bfloat16):
         from repro_torch.core.efta import reference_attention
         slack = 2.0 ** -7 * reference_attention(
             q, k, v.float().abs(), causal=bool(kw.get("causal")),
@@ -2042,7 +2083,7 @@ def phase_gather_serve(torch, np, serve):
     fused = drive(torch, np, fused_engine(model, params), prompts, 32,
                   margins=True)
     check_b1(fused, model.cfg.num_layers, "f32 fused")
-    efta_attention.launches = 0
+    zero_b2_counts()
     always = drive(torch, np, fused_engine(model, params, kernel="gather"),
                    prompts, 32)
     ties = gate_tokens(np, fused, always, "gather vs fused")
@@ -2271,7 +2312,7 @@ def phase_encoder(torch, np, seed):
         params = model_params(torch, m_k, seed)
         m_p = family_model(arch, attn_impl="efta", dtype=dtype)
         rec = RegimeRecorder() if dtype == "bfloat16" else None
-        efta_attention.launches = 0
+        zero_b2_counts()
         got, rep = m_k.logits(params, batch)
         torch.cuda.synchronize()
         launches = efta_attention.launches
@@ -2360,13 +2401,14 @@ def phase_encdec(torch, np, seed):
         prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 64)),
                                  device=DEVICE).long()
         rec = RegimeRecorder()
-        efta_attention.launches = 0
+        zero_b2_counts()
         t0 = time.perf_counter()
         toks, rep = greedy_generate(m_k, params, prompt, steps=n_new,
                                     enc_tokens=enc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = efta_attention.launches
+        by_layout = b2_by_layout()
         rec.restore()
         L = cfg.num_layers
         want = {(512, 512, False): cfg.encoder_layers, (64, 64, True): L,
@@ -2374,6 +2416,9 @@ def phase_encdec(torch, np, seed):
         check(rec.counts == want and launches == sum(want.values()),
               f"t5 {dtype}: B2 launches {rec.counts} (kernel {launches}), "
               f"want {want}")
+        check_decode_launches(by_layout, f"t5 {dtype}")
+        check(by_layout["decode Sq1"] == L * n_new,
+              f"t5 {dtype}: {by_layout} decode launches, want {L * n_new}")
         check(int(rep.detected.sum()) == 0, f"t5 {dtype}: clean detections")
         # the plain-EFTA oracle, its logits' top-2 gaps kept per token
         m_p = family_model(arch, attn_impl="efta", dtype=dtype)
@@ -2407,7 +2452,7 @@ def phase_encdec(torch, np, seed):
             ties.append({"row": r, "token": i, "gap_over_max": gap / mx})
         regimes = {regime_name(k): b2_regime_numbers(torch, cap)
                    for k, cap in sorted(rec.captured.items())}
-        out[dtype] = {"b2_launches": launches,
+        out[dtype] = {"b2_launches": launches, "b2_by_layout": by_layout,
                       "by_regime": {regime_name(k): n
                                     for k, n in rec.counts.items()},
                       "per_decode_step": rec.counts[(1, 512, False)] / n_new,
@@ -3453,15 +3498,20 @@ def phase_vlm(torch, np, seed):
         m_k = vlm_model(dtype, layers, attn_impl="efta_pallas",
                         block_kv=VLM_BLOCK_KV)
         rec = RegimeRecorder()
-        efta_attention.launches = 0
+        zero_b2_counts()
         got, rep_k, t_k, wall_k = timed_greedy(torch, m_k, params, toks, fe,
                                                n_new)
         launches = efta_attention.launches
+        by_layout = b2_by_layout()
         rec.restore()
         want = {(S, S, True): L, (S, M, False): ns, (1, M, False): ns * n_new}
         check(rec.counts == want and launches == sum(want.values()),
               f"{VLM_ARCH} {dtype}: B2 launches {rec.counts} (kernel "
               f"{launches}), want {want}")
+        check_decode_launches(by_layout, f"{VLM_ARCH} {dtype}")
+        check(by_layout["decode Sq1"] == ns * n_new,
+              f"{VLM_ARCH} {dtype}: {by_layout} decode launches, want "
+              f"{ns * n_new}")
         check(int(rep_e.detected.sum()) == 0 and
               int(rep_k.detected.sum()) == 0,
               f"{VLM_ARCH} {dtype}: clean detections")
@@ -3469,6 +3519,7 @@ def phase_vlm(torch, np, seed):
                              hold=dtype == "float32")
         res.update(same_tokens=float((got == ref).float().mean()),
                    differing_rows=ties, b2_launches=launches,
+                   b2_by_layout=by_layout,
                    b2_by_regime={regime_name(k): n
                                  for k, n in sorted(rec.counts.items())})
         for name, t, wall in (("efta", t_e, wall_e),
@@ -4051,7 +4102,7 @@ def b2_wide_tiling():
     mod = b2_module()
     n, refused, layouts = 0, 0, Counter()
     for code in (0, 1):
-        for bq in (16, 64, 128):
+        for bq in (1, 16, 64, 128):
             for mg in (1, 2, 4):
                 for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
                     for d in (64, 72, 112, 128, 160, 256):
@@ -4333,7 +4384,9 @@ def phase_b2_wide(torch, np, seed):
 # (B, H, Hkv, Sq, Skv, D, causal, block_kv, window): B2's narrow-path
 # regimes of earlier phases (gpt2's ring prefill buckets, the VLM's self
 # and cross prefill at block_kv 64, bert-large's encoder, gemma3-1b's D 256
-# under its 512 window, kimi-k2's D 112 and arctic's D 128 heads)
+# under its 512 window, kimi-k2's D 112 and arctic's D 128 heads) and the
+# cross-attention decode of t5 (one 512-key block) and of the VLM (25
+# blocks of 64 keys, 4 query heads a KV head)
 B2_NARROW_AB = {"gpt2_S512": (1, 12, 12, 512, 512, 64, True, 512, None),
                 "gpt2_S64": (1, 12, 12, 64, 64, 64, True, 512, None),
                 "vlm_self": (8, 32, 8, 512, 512, 128, True, 64, None),
@@ -4341,16 +4394,21 @@ B2_NARROW_AB = {"gpt2_S512": (1, 12, 12, 512, 512, 64, True, 512, None),
                 "gemma3_w512": (1, 4, 1, 1024, 1024, 256, True, 512, 512),
                 "kimi_512": (1, 64, 8, 512, 512, 112, True, 512, None),
                 "arctic_512": (1, 56, 8, 512, 512, 128, True, 512, None),
-                "vlm_cross": (8, 32, 8, 512, 1600, 128, False, 64, None)}
+                "vlm_cross": (8, 32, 8, 512, 1600, 128, False, 64, None),
+                "t5_cross_decode": (8, 8, 8, 1, 512, 64, False, 512, None),
+                "vlm_cross_decode": (8, 32, 8, 1, 1600, 128, False, 64,
+                                     None)}
 
 
 def narrow_sass(kinds=("efta_attention_kernelI",)):
     """Per instantiation of B2's narrow kernel (``efta_attention_kernel``,
-    not ``_wide``, ``_cluster``, ``_tile`` or ``_fold``; other ``kinds``:
-    substrings of the kernels' mangled names) in the built library: the
-    sha1 of its ``cuobjdump -sass`` text, encodings included, with the
-    anonymous namespace's per-build ``_GLOBAL__N__<hash>_`` taken out, and
-    its line count."""
+    not ``_wide``, ``_cluster``, ``_tile``, ``_fold`` or the decode
+    layout's ``_d*``; other ``kinds``: substrings of the kernels' mangled
+    names) in the built library: the sha1 of its ``cuobjdump -sass`` text,
+    encodings included, with the anonymous namespace's per-build
+    ``_GLOBAL__N__<hash>_`` taken out and the branch labels (``.L_x_N``,
+    numbered across the file, so kernels added to it shift them) numbered
+    within the function, and its line count."""
     import hashlib
     import re
     import shutil
@@ -4368,7 +4426,13 @@ def narrow_sass(kinds=("efta_attention_kernelI",)):
             funcs[name] = []
         elif name is not None:
             funcs[name].append(ln)
-    return {n: {"sha1": hashlib.sha1("\n".join(body).encode())
+
+    def own_labels(body):
+        names = {}
+        return re.sub(r"\.L_x_\d+", lambda m: names.setdefault(
+            m.group(0), f".L{len(names)}"), "\n".join(body))
+
+    return {n: {"sha1": hashlib.sha1(own_labels(body).encode())
                 .hexdigest()[:16], "lines": len(body)}
             for n, body in funcs.items() if any(k in n for k in kinds)}
 
@@ -4376,10 +4440,12 @@ def narrow_sass(kinds=("efta_attention_kernelI",)):
 def phase_b2_narrow(torch, np, seed):
     """B2 at ``B2_NARROW_AB`` in bf16 and f32: the layout the kernel takes,
     the profiler's device time per launch (20 calls; on the tile layout
-    its fold pass and the tile kernel, and the fold pass alone), and a
+    its fold pass and the tile kernel, and the fold pass alone; on the
+    decode layout its three passes, and each alone), and a
     hash of the clean and an EXP-faulted output with both detection
     vectors; the SASS hashes of the narrow kernel (``narrow_sass``) and of
-    the tile layout's two kernels. Only under ``--only b2_narrow``: run in
+    the tile layout's two kernels, the workspace and the cluster layouts'
+    kernels. Only under ``--only b2_narrow``: run in
     two checkouts in turns (this file copied into the other's root;
     parent, change, change, parent), it holds one kernel to the other
     (equal hashes and counts where both take the same layout) and puts
@@ -4415,12 +4481,18 @@ def phase_b2_narrow(torch, np, seed):
                 "fold_ms": device_ms(torch, lambda: efta_attention(
                     q, k, v, **kw), 20, name="efta_attention_kernel_fold")
                 if layout == "tile" else None,
+                "decode_ms": {p: device_ms(torch, lambda: efta_attention(
+                    q, k, v, **kw), 20, name=f"efta_attention_kernel_d{p}")
+                    for p in ("score", "exp", "state")}
+                if layout == "decode" else None,
                 "hash": h.hexdigest()[:16], "detected": d.tolist(),
                 "detected_exp_seu": df.tolist()}
     emit({"phase": "b2_narrow", "ok": True, "regimes": res,
           "sass": narrow_sass(),
           "tile_sass": narrow_sass(("efta_attention_kernel_tile",
-                                    "efta_attention_kernel_fold"))})
+                                    "efta_attention_kernel_fold")),
+          "wide_sass": narrow_sass(("efta_attention_kernel_wide",
+                                    "efta_attention_kernel_cluster"))})
 
 
 # ---------------------------------------------------------------------------

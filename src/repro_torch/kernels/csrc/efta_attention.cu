@@ -220,10 +220,50 @@
 //     mma.sync with p and the V checksums split into bf16 high and low
 //     parts, each warpgroup a share of the keys of one checksum n-tile,
 //     the shares summed in order.
-// The check's unit stays the reference's KV block in all four layouts.
-// Every tiling the first layout fits and the tile layout does not take
-// keeps the first kernel (same outputs and counts). PERF.md section 6 has
-// each layout's times beside the bound.
+// The decode layout (efta_attention_kernel_dscore, _dexp and _dstate,
+// efta_attention_decode.cuh) takes one query row a query tile (block_q 1:
+// the cross-attention decode of t5 and the VLM) under unified output
+// verification. What bounds it is the bytes: at the VLM's (B 8, 32 heads
+// of 128 on 8, 1,600 keys) K and V are 52 MB, 15.7 us, and its GEMMs
+// 0.1 GFLOP. What held the first layout back there: one real row in a
+// 16-row group, every row phase on one warp's s_kv lanes with g_kv keys a
+// lane in series, every query head's CTA folding its KV head's blocks
+// again (K folds, V checksums, max|V|), the VLM's 25 blocks walked in
+// series by 256 CTAs and t5's one block by 64.
+//   * A unit is a request's KV head with all its query rows (up to 8): K
+//     and V are read, and folded, once a KV head. Each KV block is split
+//     into parts of whole fold residues (at most 128 keys a CTA: t5's
+//     512-key block into 4 parts of 4 residues), since a residue's fold
+//     check needs all its segments and no other residue's.
+//   * The work that does not read the running state runs on (unit, KV
+//     block, part) CTAs side by side: the score pass (GEMM I, K folds, the
+//     fold check with locate and correct, the partial block max) and the
+//     EXP pass, which first replays the running max and its shadow in
+//     block order from the block maxima (a prefix max over a warp's
+//     lanes: the max is exact in any order), then EXP, its checks, the
+//     rowsum terms, V's checksums and max|V|, P V and the O-checksum
+//     products from zero.
+//   * The state pass folds the running state in block order, one CTA a
+//     query row: acc = alpha acc + P V, l, the shadow l, r and the O
+//     checksums, the sequential order of the plain version (no merge of
+//     partial states of spans, which would move what a state SEU strikes);
+//     then the SNVR bound, the clamp and the unified verify.
+//   * Scores, checksum products, block maxima and each part's products
+//     pass between the kernels through a workspace the wrapper allocates
+//     (one slot a unit and KV block), staged with cp.async; each CTA
+//     writes its own counts.
+//   * In bf16 GEMM I and P V run on mma.sync m16n8k16 with the unit's rows
+//     in a 16-row tile: one instruction where each lane would issue a
+//     hundred FMAs, which bounded these short CTAs more than the idle half
+//     of the tile. The f32 instantiation keeps f32 FMAs; the checksum
+//     products stay f32 FMAs in both, spread over the lanes of a warp.
+//   * The folded scores of the fold check are summed in segment order, as
+//     the plain version sums them: a correction moves a struck score by
+//     the difference of the two sums, so their rounding must match.
+// The check's unit stays the reference's KV block in all five layouts.
+// Every tiling the first layout fits and the tile and decode layouts do
+// not take keeps the first kernel (same outputs and counts). PERF.md
+// section 6 has each layout's times beside the bound.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
@@ -332,11 +372,13 @@ int slice_of(int D) {
 
 #include "efta_attention_cluster.cuh"
 #include "efta_attention_tile.cuh"
+#include "efta_attention_decode.cuh"
 
 // cl: CTAs a cluster of the cluster layout, 0 for the others; tile: the
-// tile layout
+// tile layout; dc: the decode layout's residue parts a KV block (0: another
+// layout)
 struct Tiling {
-  int W, KC, ST, per_sm, wide, g_kf, cl, tile;
+  int W, KC, ST, per_sm, wide, g_kf, cl, tile, dc;
 };
 
 // row groups per block (2 or 1, each of 16 rows and WPG warps), keys per
@@ -361,12 +403,24 @@ struct Tiling {
 // block_kv <= 1,024, s_kv a power of two from 2 to 32, g_kv <= 32, D <=
 // 128) and fits: the widest chunk (128, 64, 32 keys), then the deepest
 // ring.
+// Before every other, the decode layout wherever it holds the shapes:
+// block_q 1, unified output verification (the per-step check's count
+// follows the summation order, which its split over CTAs changes), D <=
+// 256, and at most DC_KEYS keys a CTA for some divisor of s_kv (g_kv <=
+// 128); every dtype, causal mask, window and kv_len.
 // python mirror: repro_torch/kernels/efta_attention.py::tiling
 bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
                   int max_groups, int unified, Tiling* t) {
   if (Bc % 16 || D % 16 || skv < 1 || Bc % skv || sout <= 0 || D % sout ||
       slice_of(D) == 0)
     return false;
+  if (block_q == 1 && unified && D <= 2 * DC_STATE_THREADS) {
+    const DLayout L = make_decode_layout(D, Bc, skv, sout, esz);
+    if (L.parts > 0 && decode_smem(L) <= SMEM_LIMIT) {
+      *t = Tiling{1, L.keys, 1, 1, 0, 0, 0, 0, L.parts};
+      return true;
+    }
+  }
   if (esz == 2 && unified && block_q >= 16 * TL_GROUPS &&
       (long long)block_q * Bc >= TL_MIN_SCORES && max_groups >= TL_GROUPS &&
       Bc <= 1024 && skv >= 2 && skv <= 32 &&
@@ -375,7 +429,7 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
       for (int st = 3; st >= 2; --st)
         if (kc <= Bc && Bc % kc == 0 &&
             make_tile_layout(kc, st, D, Bc, skv, sout).total <= SMEM_LIMIT) {
-          *t = Tiling{TL_GROUPS, kc, st, 1, 0, 0, 0, 1};
+          *t = Tiling{TL_GROUPS, kc, st, 1, 0, 0, 0, 1, 0};
           return true;
         }
   int wmax = (block_q + 15) / 16;
@@ -385,7 +439,7 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
     if (Bc % kc || make_layout(w, kc, st, D, Bc, skv, sout, esz, wide,
                                g_kf).total > SMEM_LIMIT / per_sm)
       return false;
-    *t = Tiling{w, kc, st, per_sm, wide, g_kf, 0, 0};
+    *t = Tiling{w, kc, st, per_sm, wide, g_kf, 0, 0, 0};
     return true;
   };
   if (skv >= 2 && skv <= 32 && !(skv & (skv - 1)) && Bc / skv <= MAX_G)
@@ -409,7 +463,7 @@ bool choose_tiles(int block_q, int Bc, int D, int skv, int sout, int esz,
                   make_cluster_layout(w, kc, st, D, Bc, skv, sout, esz, n)
                           .total > SMEM_LIMIT)
                 continue;
-              *t = Tiling{w, kc, st, 1, 0, 0, n, 0};
+              *t = Tiling{w, kc, st, 1, 0, 0, n, 0, 0};
               return true;
             }
   for (int g_kf = 0; g_kf <= 1; ++g_kf)
@@ -526,13 +580,16 @@ cudaError_t launch_tile(const TParams& c, cudaStream_t stream) {
 
 extern "C" {
 
-// Thread blocks per reference query tile (block_q rows) for these shapes,
-// or 0 when no tiling fits one SM's shared memory. dtype as below; unified
-// as the launch's. With `tiling` (10 ints, or NULL) also the choice: {row
-// groups W, keys a chunk, ring stages, thread blocks an SM, wide path, K
-// folds in the workspace, shared-memory bytes, workspace floats a slot (the
-// tile layout: fold-pass floats a KV head and KV block), CTAs a cluster (0:
-// not the cluster layout), the tile layout}.
+// Thread blocks per reference query tile (block_q rows) for these shapes
+// (the decode layout: its residue parts a KV block), or 0 when no tiling
+// fits one SM's shared memory. dtype as below; unified as the launch's.
+// With `tiling` (11 ints, or NULL) also the choice: {row groups W, keys a
+// chunk (the decode layout: a CTA), ring stages, thread blocks an SM, wide
+// path, K folds in the workspace, shared-memory bytes (the decode layout:
+// its largest pass's), workspace floats a slot (the tile layout: fold-pass
+// floats a KV head and KV block; the decode layout: a unit and KV block),
+// CTAs a cluster (0: not the cluster layout), the tile layout, the decode
+// layout's residue parts}.
 int efta_attention_tiles(int dtype, int block_q, int block_kv, int D,
                          int s_kv, int s_out, int max_groups, int unified,
                          int* tiling) {
@@ -544,20 +601,24 @@ int efta_attention_tiles(int dtype, int block_q, int block_kv, int D,
   if (tiling) {
     const Layout L = make_layout(t.W, t.KC, t.ST, D, block_kv, s_kv, s_out,
                                  esz, t.wide, t.g_kf);
+    const DLayout DL = make_decode_layout(D, block_kv, s_kv, s_out, esz);
     const int smem =
-        t.tile ? (int)make_tile_layout(t.KC, t.ST, D, block_kv, s_kv, s_out)
+        t.dc ? (int)decode_smem(DL)
+        : t.tile ? (int)make_tile_layout(t.KC, t.ST, D, block_kv, s_kv, s_out)
                      .total
         : t.cl ? (int)make_cluster_layout(t.W, t.KC, t.ST, D, block_kv, s_kv,
                                           s_out, esz, t.cl).total
                : (int)L.total;
     const int floats =
-        t.tile   ? make_fold(D, block_kv, s_kv, s_out).floats
+        t.dc     ? DL.floats
+        : t.tile ? make_fold(D, block_kv, s_kv, s_out).floats
         : t.wide ? (int)make_slot(L, t.W, s_kv, t.g_kf).floats
                  : 0;
-    const int v[10] = {t.W,    t.KC,   t.ST, t.per_sm, t.wide,
-                       t.g_kf, smem, floats, t.cl,     t.tile};
-    for (int i = 0; i < 10; ++i) tiling[i] = v[i];
+    const int v[11] = {t.W,    t.KC, t.ST,   t.per_sm, t.wide, t.g_kf,
+                       smem,   floats, t.cl, t.tile,   t.dc};
+    for (int i = 0; i < 11; ++i) tiling[i] = v[i];
   }
+  if (t.dc) return t.dc;
   return (block_q + 16 * t.W - 1) / (16 * t.W) * (t.cl ? t.cl : 1);
 }
 
@@ -580,7 +641,11 @@ const char* efta_attention_error_string(int code) {
 // (efta_attention_tiles gives the floats a slot) and the grid is `slots`
 // thread blocks; else both are unused: the cluster layout allocates
 // nothing, and rep then holds a row of counts for each CTA of a tile's
-// cluster. The launch goes on `stream`.
+// cluster. The tile layout takes `slots` = BH / grp x n_kv fold-pass slots.
+// The decode layout takes BH / grp x ceil(grp / 8) x n_q x n_kv workspace
+// slots, and rep is (BH, n_q x (n_kv x parts + 1), 5): a row of counts for
+// each part of each KV block (the score and EXP passes) and one for the
+// state pass. The launch goes on `stream`.
 int efta_attention_launch(int dtype, const void* q, const void* k,
                           const void* v, void* out, void* rep, int BH,
                           int grp, int Sq, int Skv, int D, int block_q,
@@ -630,7 +695,12 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   p.ws = (float*)ws;
   p.S = make_slot(p.L, p.W, s_kv, t.wide && t.g_kf);
   p.n_sub = (block_q + 16 * p.W - 1) / (16 * p.W);
-  if (t.cl ? (long long)t.cl * BH * n_q * p.n_sub > 0x7fffffff
+  const long long dc_units =
+      (long long)BH / grp * ((grp + DC_ROWS - 1) / DC_ROWS) * n_q;
+  if (t.dc ? (ws == nullptr || slots != dc_units * n_kv ||
+              dc_units > 65535 || (long long)n_kv * t.dc > 0x7fffffff ||
+              (long long)BH * n_q * (n_kv * t.dc + 1) > 0x7fffffff)
+      : t.cl ? (long long)t.cl * BH * n_q * p.n_sub > 0x7fffffff
       : t.tile ? (ws == nullptr || slots != BH / grp * n_kv ||
                   (long long)BH * n_q * p.n_sub > 0x7fffffff ||
                   BH / grp > 65535 ||
@@ -656,6 +726,14 @@ int efta_attention_launch(int dtype, const void* q, const void* k,
   const int f[8] = {f0, f1, f2, f3, f4, f5, f6, f7};
   for (int i = 0; i < 8; ++i) p.fault[i] = f[i];
   cudaStream_t s = (cudaStream_t)stream;
+  if (t.dc) {
+    DParams c;
+    c.P = p;
+    c.L = make_decode_layout(D, block_kv, s_kv, s_out, esz);
+    c.n_rg = (grp + DC_ROWS - 1) / DC_ROWS;
+    return (int)(dtype == 0 ? launch_decode<float>(c, s)
+                            : launch_decode<__nv_bfloat16>(c, s));
+  }
   if (t.tile) {
     TParams c;
     c.P = p;

@@ -26,6 +26,7 @@ per call (:func:`fault_descriptor` builds it from a :class:`FaultSpec`).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -116,8 +117,6 @@ def _tile_counts(q, k, v, *, cfg: EFTAConfig, causal=False, window=None,
         raise ValueError(f"efta_attention runs on cpu, cuda or meta "
                          f"tensors; got {q.device}")
     out = _efta_device(call, q, k, v, cfg)
-    if q.device.type == "cuda":
-        efta_attention.launches += 1
     record_launch("efta_attention",
                   lambda: efta_attention_work(q, k, causal=causal))
     return out
@@ -153,7 +152,8 @@ def efta_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rowsum, gemm2]``).
 
     A CPU ``q`` runs the plain version; a CUDA ``q`` launches the kernel
-    (``efta_attention.launches`` counts those launches).
+    (``efta_attention.launches`` counts those launches, and
+    ``.launches_by_layout`` them by (layout, Sq)).
     """
     out, rep = _tile_counts(q, k, v, cfg=cfg, causal=causal, window=window,
                             kv_len=kv_len, sm_scale=sm_scale, fault=fault,
@@ -162,6 +162,7 @@ def efta_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 efta_attention.launches = 0
+efta_attention.launches_by_layout = collections.Counter()
 
 
 def efta_attention_rows(q, k, v, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -409,6 +410,9 @@ _MAX_GROUPS = 4
 _WPG, _KERNEL_GROUPS, _CL_GROUPS, _MAX_G, _CL_NT, _SMEM_LIMIT = (
     4, 2, 4, 32, 8, 232448)
 _TL_GROUPS, _TL_NT, _TL_MIN_SCORES = 4, 4, 8192
+# the decode layout's query rows a unit, keys a CTA at most, threads of the
+# state pass (D <= twice this) and KV blocks it stages a step
+_DC_ROWS, _DC_KEYS, _DC_STATE_THREADS, _DC_CHAIN = 8, 128, 128, 32
 # streaming multiprocessors of an H100 SXM: the meta route sizes the wide
 # path's persistent grid, and its workspace, as for that card
 H100_SMS = 132
@@ -419,9 +423,11 @@ class Tiling(NamedTuple):
     block, keys a streamed chunk, ring stages, thread blocks an SM, the
     workspace path (scores in a global workspace), the K-fold planes in the
     workspace too, shared-memory bytes, workspace floats a slot (the tile
-    layout: the fold pass's floats a KV head and KV block), the thread
-    blocks a cluster of the cluster layout (0: another layout), and the
-    tile layout."""
+    layout: the fold pass's floats a KV head and KV block; the decode
+    layout: a unit and KV block), the thread blocks a cluster of the
+    cluster layout (0: another layout), the tile layout, and the decode
+    layout's residue parts a KV block (0: another layout; its ``KC`` is
+    the keys a CTA, its ``smem`` its largest pass's)."""
 
     W: int
     KC: int
@@ -433,11 +439,13 @@ class Tiling(NamedTuple):
     slot_floats: int
     cluster: int
     tile: int
+    decode: int = 0
 
     @property
     def layout(self) -> str:
-        """"tile", "narrow", "cluster" or "workspace"."""
-        return ("tile" if self.tile else "cluster" if self.cluster else
+        """"decode", "tile", "narrow", "cluster" or "workspace"."""
+        return ("decode" if self.decode else "tile" if self.tile else
+                "cluster" if self.cluster else
                 "workspace" if self.wide else "narrow")
 
 
@@ -502,12 +510,53 @@ def _tile_layout(KC, ST, D, Bc, skv, sout) -> int:
     return sum((n + 15) & ~15 for n in parts)
 
 
+def _decode_parts(Bc: int, skv: int) -> int:
+    """The decode layout's residue parts a KV block: the fewest (a divisor
+    of ``s_kv``) that leave at most 128 keys a CTA, a multiple of 16,
+    else 0."""
+    return next((p for p in range(1, skv + 1)
+                 if skv % p == 0 and Bc % (16 * p) == 0
+                 and Bc // p <= _DC_KEYS), 0)
+
+
+def _decode_layout(D, Bc, skv, sout, esz, parts) -> Tuple[int, int]:
+    """(shared bytes of the largest pass, workspace floats a unit and KV
+    block) of the decode layout: ``make_decode_layout``."""
+    keys, res, R = Bc // parts, skv // parts, _DC_ROWS
+    ldk, ldf = (D + 8 if esz == 2 else D + 4), D + 4
+
+    def up4(n):
+        return (n + 3) & ~3
+
+    # scores, checksum products and the parts' block maxima; then a part's
+    # P V, O checksums, rowsum terms and max|V|
+    head = up4(R * Bc) + up4(R * skv) + up4(parts * R)
+    part_floats = R * D + 2 * up4(R * sout) + 2 * R + 4
+
+    def total(*sizes):
+        return sum((n + 15) & ~15 for n in sizes)
+
+    strip, q, threads = keys * ldk * esz, 16 * ldk * esz, 32 * R
+    score = total(strip, q, R * keys * 4, 2 * res * ldf * 4, R * res * 4)
+    exp = total(strip, R * keys * 4, R * keys * 4, R * res * 4,
+                2 * keys * sout * 4, 2 * max(R * sout, threads) * 4, R * 4,
+                threads // 32 * 4, _DC_CHAIN * parts * R * 4)
+    chain = max(_DC_CHAIN // parts, 1)
+    state = total(chain * parts * 16, chain * parts * D * 4,
+                  chain * parts * 2 * sout * 4, D * 4, chain * 4, chain * 4,
+                  chain * 4, (2 + _DC_STATE_THREADS // 32) * 4)
+    return max(score, exp, state), head + parts * part_floats
+
+
 def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
            s_out: int, max_groups: int = _MAX_GROUPS,
            unified: bool = True) -> Optional[Tiling]:
     """The kernel's tiling of these shapes, or None where it takes none:
     ``choose_tiles`` of ``csrc/efta_attention.cu``, in Python, so that the
-    meta route needs no build. The tile layout wherever it holds the
+    meta route needs no build. The decode layout first wherever it holds
+    the shapes (``block_q`` 1, ``unified``, D <= 256, at most 128 keys a
+    CTA for a divisor of ``s_kv``: g_kv <= 128; any dtype, mask and
+    ``kv_len``). Then the tile layout wherever it holds the
     shapes (bf16, ``unified``, ``block_q`` >= 64 with ``block_q`` x
     ``block_kv`` >= 8,192 and 4 row groups allowed, ``block_kv`` <= 1,024,
     ``s_kv`` a power of two from 2 to 32, ``g_kv`` <= 32, D <= 128) and
@@ -526,6 +575,12 @@ def tiling(dtype_code: int, block_q: int, block_kv: int, d: int, s_kv: int,
             or sout <= 0 or D % sout or not _slice_of(D)):
         return None
     esz = 4 if dtype_code == 0 else 2
+    if block_q == 1 and unified and D <= 2 * _DC_STATE_THREADS:
+        parts = _decode_parts(Bc, skv)
+        smem, floats = _decode_layout(D, Bc, skv, sout, esz, max(parts, 1))
+        if parts and smem <= _SMEM_LIMIT:
+            return Tiling(1, Bc // parts, 1, 1, 0, 0, smem, floats, 0, 0,
+                          parts)
     if (esz == 2 and unified and block_q >= 16 * _TL_GROUPS
             and block_q * Bc >= _TL_MIN_SCORES
             and max_groups >= _TL_GROUPS and Bc <= 1024 and 2 <= skv <= 32
@@ -605,7 +660,7 @@ def kernel_tiling(dtype_code: int, block_q: int, block_kv: int, d: int,
     """What the built kernel's C entry point ``efta_attention_tiles``
     chooses for these shapes (None: no tiling); :func:`tiling` mirrors
     it. Builds the kernel on first use."""
-    buf = (ctypes.c_int * 10)()
+    buf = (ctypes.c_int * 11)()
     n_sub = _lib().efta_attention_tiles(dtype_code, block_q, block_kv, d,
                                         s_kv, s_out, max_groups,
                                         int(unified), buf)
@@ -616,10 +671,13 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
     """The kernel's route. A CUDA ``q`` launches the kernel. A meta ``q``
     takes the same checks, the same tiling (:func:`tiling`, the C rule in
     Python) and makes and sums the same tensors, the workspace path's
-    workspace (a persistent grid as on an H100) and the tile layout's
-    fold-pass output (one slot a KV head and KV block) among them; the
+    workspace (a persistent grid as on an H100), the tile layout's
+    fold-pass output (one slot a KV head and KV block) and the decode
+    layout's workspace (one slot a unit and KV block) among them; the
     other layouts allocate none. It computes nothing, so a dry run counts
-    what the card does and refuses what it refuses."""
+    what the card does and refuses what it refuses. A CUDA launch is
+    counted where it launches: ``efta_attention.launches`` and
+    ``.launches_by_layout`` (by layout and Sq)."""
     dtype = q.dtype
     if dtype not in DTYPES:
         raise TypeError(f"efta_attention kernel takes float32 or bfloat16, "
@@ -640,13 +698,21 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
                          f"(stride {c.s_kv}) x head_dim {D} has no "
                          f"tiling that fits one thread block")
     # thread blocks per query tile: one takes 16, 32 or 64 rows of one
-    # reference tile; the cluster layout's tile rows take a cluster of them
-    n_sub = -(-c.block_q // (16 * t.W)) * max(t.cluster, 1)
+    # reference tile; the cluster layout's tile rows take a cluster of them;
+    # the decode layout: a count row for each part of each KV block and
+    # one for its state pass
+    n_sub = (c.n_kv * t.decode + 1 if t.decode else
+             -(-c.block_q // (16 * t.W)) * max(t.cluster, 1))
     out = torch.empty_like(q)
     rep = torch.empty((BH, c.n_q * n_sub, 5), dtype=torch.int32,
                       device=q.device)
     ws, slots = None, 0
-    if t.tile:
+    if t.decode:
+        # a unit: a KV head's query heads (8 at most) at one query tile
+        slots = BH // c.grp * -(-c.grp // _DC_ROWS) * c.n_q * c.n_kv
+        ws = torch.empty((slots, t.slot_floats), dtype=torch.float32,
+                         device=q.device)
+    elif t.tile:
         slots = c.b * c.h // c.grp * c.n_kv
         ws = torch.empty((slots, t.slot_floats), dtype=torch.float32,
                          device=q.device)
@@ -672,8 +738,10 @@ def _efta_device(c: _Call, q, k, v, cfg: EFTAConfig):
             None if ws is None else ws.data_ptr(), slots, stream)
         if rc != 0:
             msg = lib.efta_attention_error_string(rc).decode()
-            raise RuntimeError(f"efta_attention kernel launch failed: CUDA "
-                               f"error {rc} ({msg})")
+            raise RuntimeError(f"efta_attention kernel ({t.layout} layout) "
+                               f"launch failed: CUDA error {rc} ({msg})")
+        efta_attention.launches += 1
+        efta_attention.launches_by_layout[(t.layout, c.sq)] += 1
     # per-thread-block partial counts, summed here: no atomics
     return out, rep.reshape(BH, c.n_q, n_sub, 5).sum(dim=2,
                                                     dtype=torch.int32)

@@ -76,7 +76,10 @@ def test_tiling_mirror_keeps_the_narrow_layout(case):
     elif case == "block_q_32":
         bq = 32
     elif case == "decode":
+        # one row a query tile under the per-step output check: the decode
+        # layout refuses it (under unified verification it takes it)
         bq = 1
+        kw["unified"] = False
     elif case == "groups_2":
         kw["max_groups"] = 2
     elif case == "bucket_64":

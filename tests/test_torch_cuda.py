@@ -654,7 +654,7 @@ def test_tiling_mirror_equals_the_kernels_rule():
     from repro_torch.kernels import efta_attention as mod
     cuda_or_skip()
     for code in (0, 1):
-        for bq in (16, 64, 128):
+        for bq in (1, 16, 64, 128):
             for mg in (1, 2, 4):
                 for bkv in (16, 64, 512, 1024, 2048, 4096, 8192, 32768):
                     for d in (64, 72, 112, 128, 160, 256):
@@ -667,6 +667,70 @@ def test_tiling_mirror_equals_the_kernels_rule():
                                           unified)
                                 assert mod.tiling(*shapes) == \
                                     mod.kernel_tiling(*shapes), shapes
+
+
+# the decode layout (csrc/efta_attention_decode.cuh: one query row a query
+# tile, a unit a KV head's query heads, a score, an EXP and a state pass)
+# at 1, 4, 8 and 12 (two row groups of 8) query heads a KV head, D 64, 112
+# and 128, one KV block (t5's 512 keys in 4 parts) and many (the VLM's 25
+# blocks of 64), ragged kv_len that ends inside a block, causal (only key
+# 0 visible); the SEU strikes the last KV block that runs, at a visible key
+# column (output column 3 for GEMM II), on the last query head of the
+# second KV head (the second row group at 12)
+B2_DECODE = {"grp1_d64_one_block": dict(H=4, Hkv=4, Skv=512, D=64, bkv=512),
+             "grp4_d128_blocks": dict(H=8, Hkv=2, Skv=1600, D=128, bkv=64),
+             "grp8_d112_ragged": dict(H=16, Hkv=2, Skv=1024, D=112, bkv=128,
+                                      kv_len=1000),
+             "grp4_d64_causal": dict(H=8, Hkv=2, Skv=256, D=64, bkv=64,
+                                     causal=True),
+             "grp1_d128_ragged": dict(H=4, Hkv=4, Skv=2048, D=128, bkv=512,
+                                      kv_len=1500),
+             "grp12_d64": dict(H=24, Hkv=2, Skv=512, D=64, bkv=128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B2_DECODE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,site", [
+    ("off", None), ("correct", None), ("correct", Site.GEMM1),
+    ("correct", Site.EXP), ("correct", Site.ROWMAX),
+    ("correct", Site.ROWSUM), ("correct", Site.GEMM2),
+    ("detect", Site.GEMM1), ("detect", Site.EXP), ("detect", Site.ROWMAX),
+    ("detect", Site.ROWSUM), ("detect", Site.GEMM2)])
+def test_contiguous_kernel_decode_layout(regime, dtype, mode, site):
+    from repro_torch.kernels import efta_attention as mod
+    dev = cuda_or_skip()
+    shape = dict(B2_DECODE[regime])
+    bkv, causal = shape.pop("bkv"), shape.pop("causal", False)
+    kv_len = shape.pop("kv_len", None)
+    q, k, v = _contig(dev, dtype, B=2, Sq=1, seed=37, **shape)
+    cfg = EFTAConfig(mode=mode, block_kv=bkv)
+    d = shape["D"]
+    t = mod.kernel_tiling(mod.DTYPES[dtype], 1, bkv, d, cfg.kv_stride(bkv),
+                          cfg.out_stride(d))
+    assert t.layout == "decode", t
+    last = 0 if causal else ((kv_len or shape["Skv"]) - 1) // bkv
+    col = 3 if site == Site.GEMM2 else 0 if causal else 5
+    grp = shape["H"] // shape["Hkv"]
+    bh = 2 * grp - 1   # the last query head of the second KV head
+    bit = 27 if mode == "detect" else 30
+    fault = None if site is None else [int(site), last, bh, 0, col, bit, 1,
+                                       0]
+    kw = dict(cfg=cfg, causal=causal, kv_len=kv_len, fault=fault)
+    out, det = efta_attention(q, k, v, **kw)
+    plain = efta_attention_torch(q, k, v, **kw)
+    ref = to_np(plain[0].float())
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.where(fin, 0, to_np(out.float())),
+                                  np.where(fin, 0, ref))
+    bound = _wide_bound(plain, q, k, v, causal, kv_len)
+    diff = np.abs(to_np(out.float()) - ref)[fin]
+    assert (diff <= bound[fin]).all(), f"max |kernel - plain| {diff.max():.3e}"
+    np.testing.assert_array_equal(to_np(det), to_np(plain[1]))
+    if mode == "off":
+        assert int(det.sum()) == 0
+    elif site in (Site.ROWMAX, Site.ROWSUM, Site.EXP) and mode == "correct":
+        assert int(det.sum()) >= 1
 
 
 # --- kernel B1's tile layout (csrc/efta_paged_tile.cuh) ----------------------

@@ -1,7 +1,7 @@
 """Where kernel B2 spends its time in one regime, phase by phase, on the
 card: by default deepseek-coder-33b's 32k prefill launch (56 query heads
 of 128 on 8 KV heads, 32,768 tokens, causal, block_kv 2,048), or any of
-the narrow-path regimes of ``REGIMES``; bf16, correct mode.
+the narrow-path and decode regimes of ``REGIMES``; bf16, correct mode.
 
     PYTHONPATH=src python tools/b2_phase_split.py [--regime NAME[,NAME..]]
         [--out FILE]
@@ -10,13 +10,15 @@ Builds ``csrc/efta_attention.cu`` with its phase clocks on
 (``phase_clocks.py``; each layout carries the same marks; the tile
 layout's "fold check" mark closes its checksum products, and its "max"
 phase holds the fold check and the block max, which it takes in one
-pass). Then it launches B2 on random inputs (seed 0) and prints one JSON
-line a regime: the tiling and layout, the cycles and share of each phase,
-and the launch's CUDA-event time with the clocks on (the tile layout's
-fold pass, a kernel of its own, included). Thread 0 sits in the first row
-group, so a row phase's share is that group's, and waits for the other
-groups land in the next phase that ends in a barrier. Needs the card and
-``nvcc``.
+pass; the decode layout's three kernels, the score, EXP and state
+passes, carry marks of their own, ``DECODE_PHASES``). Then it launches B2
+on random inputs (seed 0) and prints one JSON line a regime: the tiling
+and layout, the cycles and share of each phase, and the launch's
+CUDA-event time with the clocks on (the tile layout's fold pass, a kernel
+of its own, included). Thread 0 sits in the first row group (the decode
+layout: in warp 0, which holds the first query row), so a row phase's
+share is that group's, and waits for the other groups land in the next
+phase that ends in a barrier. Needs the card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -25,10 +27,20 @@ import sys
 
 import phase_clocks
 
+# the marks of the narrow, tile, cluster and workspace layouts; the decode
+# layout's three kernels have marks of their own
 PHASES = ("setup", "K pass: GEMM I, K folds", "fold check", "max",
           "EXP, rowsum", "V pass: GEMM II, V and O checksums", "block tail",
           "finalize", "cluster waits", "K-chunk waits", "V-chunk waits",
           "V checksums", "O-checksum products")
+DECODE_PHASES = ("score pass: K and q loads", "score pass: GEMM I, K folds",
+                 "score pass: checksum products, fold check",
+                 "score pass: block max, stores",
+                 "EXP pass: V and workspace loads, running-max replay",
+                 "EXP pass: EXP, checks, rowsum terms",
+                 "EXP pass: barrier after the row phases",
+                 "EXP pass: V checksums, GEMM II, O-checksum products",
+                 "state pass: running state", "state pass: finalize")
 # (B, H, Hkv, Sq, Skv, D, causal, block_kv, launches a timing)
 REGIMES = {
     "deepseek": (1, 56, 8, 32768, 32768, 128, True, 2048, 2),
@@ -37,6 +49,8 @@ REGIMES = {
     "bert": (8, 16, 16, 512, 512, 64, False, 512, 20),
     "vlm_self": (8, 32, 8, 512, 512, 128, True, 64, 20),
     "vlm_cross": (8, 32, 8, 512, 1600, 128, False, 64, 10),
+    "t5_cross_decode": (8, 8, 8, 1, 512, 64, False, 512, 20),
+    "vlm_cross_decode": (8, 32, 8, 1, 1600, 128, False, 64, 20),
 }
 
 
@@ -75,7 +89,8 @@ def main(argv=None) -> int:
         phase_clocks.split(
             torch, "b2_phase_split", name,
             lambda: ea.efta_attention(q, k, v, cfg=cfg, causal=causal),
-            clocks, PHASES, reps, t, args.out)
+            clocks, DECODE_PHASES if t.layout == "decode" else PHASES,
+            reps, t, args.out)
         del q, k, v
     return 0
 
