@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-        [--only dist,vlm,train,dryrun,b2_wide,examples,b2_narrow,b1_chunk]
+        [--only dist,vlm,train,dryrun,b2_wide,examples,b2_narrow,b1_chunk,
+                b1_decode]
 
 Run from the root of a checkout. Phases, each printing one JSON line:
 
@@ -15,7 +16,10 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              attention shapes (H 4, Hkv 1, D 256, C 64, window 512 and
              none, bf16), plus decode at grp 4 (gemma3-1b, C 1), a C 64
              step with decode rows, and requests that fill the 64-block
-             table: outputs within ``out_bound`` element by element,
+             table, each on the layout its rule gives it (C 1 on the
+             decode layout; C 64 on the tile layout in bf16 up to D 128,
+             else the first): outputs within ``out_bound`` element by
+             element,
              detection vectors and bad planes exactly equal, zero detections
              on clean input, each compute-site SEU and a resident KV flip
              detected alike and corrected back to the clean output. Clean,
@@ -25,7 +29,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              width in bf16 with random weights from the seed: 8 slots, 16
              requests of 64-512 prompt tokens, 32 new tokens each. Every
              request finishes, the kernel's launch counter equals 12 x the
-             forward passes, the clean run detects nothing, and a second run
+             forward passes, every C 1 launch takes the decode layout, the
+             clean run detects nothing, and a second run
              with one compute SEU and one resident KV flip detects, repairs
              or retries both and emits the clean run's tokens.
 5. numbers — tokens/s and step times of the clean run; per-launch time of
@@ -90,7 +95,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              requests x 16 tokens (acceptance > 0.9) and a cold draft on
              2 x 8 (rolled-back rows > 0), tokens as the plain run's under
              the near-tie rule.
-13. gather_serve — the gather backend in f32 on phase 4's prompts: under
+13. gather_serve — the gather backend in f32 on the first 8 of phase 4's
+             prompts (``GATHER_REQUESTS``; 16 before PR 21): under
              kv_verify "always" its tokens equal a fused f32 run's (near
              ties aside); a resident flip under "always", and one in the
              block the scrub folds next under "stamped" with a scrub every
@@ -238,10 +244,22 @@ b1_chunk — kernel B1's chunk path (``B1_CHUNK``: arctic's and kimi's C
              resident flip (counts and bad planes equal, outputs within
              ``out_bound`` plus ``p_rounding_slack``); device time a launch
              with the fold pass and alone, the bound, SDPA in a CUDA graph;
-             and the launches the tile layout leaves on the first layout
-             (``B1_KEPT``: C 1 decode at gpt2, kimi and arctic, f32, the
-             per-step check), hashed and timed, to hold two checkouts to
-             each other (run in both, parent, change, change, parent).
+             and the launches the tile and decode layouts leave on the
+             first layout (``B1_KEPT``: f32 C 64, the per-step check),
+             hashed and timed, to hold two checkouts to each other (run in
+             both, parent, change, change, parent).
+b1_decode — only under ``--only b1_decode``: kernel B1's decode path
+             (``B1_DECODE``: the C 1 decode step at gpt2, kimi and arctic,
+             bf16 and f32, B 8 over 64-block tables) on the decode layout
+             (a cluster of 8 CTAs a (request, KV head), a span of the
+             blocks each, exchanges over distributed shared memory): the
+             layout, its step width and shared bytes, registers and
+             spills; against the plain version clean, under each
+             compute-site SEU and a resident flip (counts and bad planes
+             equal, outputs within ``out_bound``); device time a launch,
+             the bound, SDPA in a CUDA graph; and hashes of the clean and
+             an EXP-faulted output, to hold two checkouts to each other
+             (parent, change, change, parent).
 b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
              earlier phases and its two cross-attention decode regimes
              (t5, the VLM) timed and hashed with each one's layout (bf16
@@ -372,7 +390,9 @@ def ptxas_summary(log):
     whose two instantiations hold 4 and 8 GEMM II n-tiles a warp, and the
     tile layout's two bf16 kernels, ``..._kernel_tile`` and its fold pass
     ``..._kernel_fold``; and the decode layout's three passes, {"bf16" |
-    "f32"} + " decode score" | " decode exp" | " decode state")."""
+    "f32"} + " decode score" | " decode exp" | " decode state"; B1's
+    decode layout, ``efta_paged_kernel_decode``: {"bf16" | "f32"} +
+    " decode")."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -382,6 +402,7 @@ def ptxas_summary(log):
             name = ("bf16 tile" if "kernel_tile" in ln else
                     "bf16 fold" if "kernel_fold" in ln else
                     f"{dt} decode {dec}" if dec else
+                    f"{dt} decode" if "kernel_decode" in ln else
                     dt + (" workspace" if "kernel_wide" in ln else
                           (" cluster D<=128" if "Li4E" in ln
                            else " cluster D<=256")
@@ -535,7 +556,12 @@ def phase_kernel(torch):
             k: sh[k] for k in ("dtype", "B", "H", "Hkv", "D", "C",
                                "decode_rows", "full_ctx") if k in sh})
         kw = {"window": sh["window"]}
-        got = call(efta_paged_attention, case, cfg, **kw)
+        got, launched = b1_launched(
+            lambda: call(efta_paged_attention, case, cfg, **kw))
+        want = {1: "decode", 64: "narrow" if sh["dtype"] == torch.float32
+                or sh["D"] > 128 else "tile"}[sh["C"]]
+        check(launched == [want], f"{sh['name']}: launched on {launched}, "
+              f"not the {want} layout")
         ref = call(efta_paged_attention_torch, case, cfg, **kw)
         # the KV walk split over 4 warps and merged (clean: the same result)
         split = call(functools.partial(_paged_split_torch, warps=4), case,
@@ -589,7 +615,8 @@ def phase_kernel(torch):
               int(got_k.bad_blocks.sum()) == 1 and
               int(got_k.detected[b2, 5]) >= 1,
               f"{sh['name']}: resident flip not flagged at its block")
-        results.append({"shape": sh["name"], "max_abs_err": err,
+        results.append({"shape": sh["name"], "layout": want,
+                        "max_abs_err": err,
                         "split_max_abs_diff": split_err,
                         "tol": tol, "seu_counts": site_counts,
                         "kv_flip_det": got_k.detected[b2].tolist()})
@@ -693,6 +720,17 @@ def check_decode_launches(by, what):
           f"layout")
 
 
+def check_b1_decode_launches(by, what, need=True):
+    """Every C 1 launch of B1 in ``by`` (:func:`b1_by_layout`; the serve
+    engines verify with the unified output check) took the decode layout,
+    and (``need``) there was one."""
+    other = {k: n for k, n in by.items()
+             if k.endswith(" C1") and not k.startswith("decode ")}
+    check(not other and (by.get("decode C1", 0) > 0 or not need),
+          f"{what}: B1's C 1 launches {by} did not all take the decode "
+          f"layout")
+
+
 def serve_run(torch, np, model, params, prompts, *, n_new, faulted, seed):
     from repro_torch.core.fault import FaultSpec, Site
     from repro_torch.kernels.efta_paged import efta_paged_attention
@@ -789,6 +827,7 @@ def phase_serve(torch, np, seed):
                                           "narrow C64" not in by),
               f"{tag}: B1's width-64 launches not all on the tile layout: "
               f"{by}")
+        check_b1_decode_launches(by, tag)
     ce, fe = clean["eng"], faulted["eng"]
     check(ce.telemetry.summary()["detected"] == 0 and
           ce.paged_stats.kv_detected_blocks == 0,
@@ -1012,8 +1051,12 @@ def b1_numbers(torch, cap, key, slack=None):
     def run(fn):
         return fn(cap["q"], cap["k"], *cap["args"], **cap["kw"])
 
-    got, ref = run(efta_paged_attention), run(efta_paged_attention_torch)
+    got, launched = b1_launched(lambda: run(efta_paged_attention))
+    ref = run(efta_paged_attention_torch)
     torch.cuda.synchronize()
+    if cap["q"].shape[2] == 1 and cap["kw"]["cfg"].unified:
+        check(launched == ["decode"], f"{key}: a C 1 launch on {launched}, "
+              f"not the decode layout")
     err = float((got.out.float() - ref.out.float()).abs().max())
     check(torch.equal(got.detected, ref.detected),
           f"{key}: kernel and plain counts differ on main-path inputs")
@@ -1034,7 +1077,8 @@ def b1_numbers(torch, cap, key, slack=None):
     peak = PEAK_FLOPS[str(cap["q"].dtype)]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return {"shape": list(cap["q"].shape), "q_lens_sum": cap["load"],
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "layout": launched, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1902,13 +1946,16 @@ def run_line(run):
 
 
 def check_b1(run, L, what):
-    """B1 launched once per layer of every forward, at widths 64 and 1."""
+    """B1 launched once per layer of every forward, at widths 64 and 1,
+    every launch at width 1 on the decode layout (a speculative run may
+    have none)."""
     eng = run["eng"]
     check(run["launches"] > 0 and run["launches"] == L * eng.stats.forwards,
           f"{what}: {run['launches']} B1 launches for {eng.stats.forwards} "
           f"forward passes")
     check(eng.chunk_widths <= {1, 64},
           f"{what}: chunk widths {sorted(eng.chunk_widths)}")
+    check_b1_decode_launches(run["b1_by_layout"], what, need=False)
 
 
 def phase_spec_serve(torch, np, seed):
@@ -2067,19 +2114,24 @@ def phase_draft_serve(torch, np, seed):
     emit({"phase": "draft_serve", "ok": True, "arch": ARCH, **res})
 
 
+# requests of phase 13's runs: the first of phase 4's prompts (the phase
+# waits on the host; 16 took it to 70-97 s of the script's time limit)
+GATHER_REQUESTS = 8
+
+
 def phase_gather_serve(torch, np, serve):
-    """The gather backend in f32 on phase 4's prompts (16 requests, 32 new
-    tokens): under kv_verify "always" its tokens equal the fused backend's
-    (near ties aside); its faulted twin with a resident flip detects,
-    repairs and emits the same tokens; under "stamped" with a scrub every 4
-    steps a flip in the verified, untouched block the scrub folds next is
-    caught and repaired, folds are skipped, and the tokens are the same.
-    No kernel runs: the
-    gather backend decodes with plain EFTA, as the JAX package's does."""
+    """The gather backend in f32 on phase 4's first ``GATHER_REQUESTS``
+    prompts (32 new tokens): under kv_verify "always" its tokens equal the
+    fused backend's (near ties aside); its faulted twin with a resident
+    flip detects, repairs and emits the same tokens; under "stamped" with
+    a scrub every 4 steps a flip in the verified, untouched block the scrub
+    folds next is caught and repaired, folds are skipped, and the tokens
+    are the same. No kernel runs: the gather backend decodes with plain
+    EFTA, as the JAX package's does."""
     from repro_torch.kernels.efta_attention import efta_attention
     model = paged_model("float32")
     params = model_params(torch, model, 0)
-    prompts = serve["prompts"]
+    prompts = serve["prompts"][:GATHER_REQUESTS]
     fused = drive(torch, np, fused_engine(model, params), prompts, 32,
                   margins=True)
     check_b1(fused, model.cfg.num_layers, "f32 fused")
@@ -2134,7 +2186,8 @@ def phase_gather_serve(torch, np, serve):
             check(np.array_equal(a, b), f"gather {name}: tokens differ from "
                   f"the clean always run for request {rid}")
         runs[name] = dict(run_line(run), stats=dataclasses.asdict(ps))
-    emit({"phase": "gather_serve", "ok": True, "arch": ARCH, "requests": 16,
+    emit({"phase": "gather_serve", "ok": True, "arch": ARCH,
+          "requests": len(prompts),
           "new_tokens": 32, "fused_f32": run_line(fused),
           "always": dict(run_line(always),
                          stats=dataclasses.asdict(always["eng"].paged_stats)),
@@ -2725,7 +2778,11 @@ def phase_kernel_regimes(torch):
                                  decode_rows=C > 1)
                 slack = (p_rounding_slack(torch, case)
                          if dtype == torch.bfloat16 else None)
-                got = call(efta_paged_attention, case, cfg)
+                got, launched = b1_launched(
+                    lambda: call(efta_paged_attention, case, cfg))
+                check(C != 1 or launched == ["decode"],
+                      f"{name}: launched on {launched}, not the decode "
+                      f"layout")
                 ref = call(efta_paged_attention_torch, case, cfg)
                 torch.cuda.synchronize()
                 compare(torch, got, ref, f"{name} clean", slack)
@@ -2803,24 +2860,34 @@ def phase_kernel_regimes(torch):
 B1_CHUNK = {"arctic_c64": (56, 8, 128, 1974, True),
             "kimi_c64": (64, 8, 112, 1964, True),
             "gpt2_prefill": (12, 12, 64, 1990, False)}
-# and the launches it leaves on the first layout: (heads, KV heads,
-# head_dim, seed, C, dtype, unified output verification); the moe heads'
-# are phase 19's inputs
-B1_KEPT = {"gpt2_decode": (12, 12, 64, 1991, 1, "bfloat16", True),
-           "kimi_decode": (64, 8, 112, 1901, 1, "bfloat16", True),
-           "arctic_decode": (56, 8, 128, 1911, 1, "bfloat16", True),
-           "kimi_c64_f32": (64, 8, 112, 1964, 64, "float32", True),
+# and the launches the tile and decode layouts leave on the first layout:
+# (heads, KV heads, head_dim, seed, C, dtype, unified output
+# verification); the moe heads' are phase 19's inputs
+B1_KEPT = {"kimi_c64_f32": (64, 8, 112, 1964, 64, "float32", True),
            "arctic_c64_per_step": (56, 8, 128, 1974, 64, "bfloat16",
                                    False)}
+# phase b1_decode's regimes, the decode step (C 1) that B1's decode layout
+# takes: (heads, KV heads, head_dim, seed, dtype) at B 8 and 64-block
+# tables; the seeds are those the three ran under in ``B1_KEPT`` before
+B1_DECODE = {"gpt2_decode": (12, 12, 64, 1991, "bfloat16"),
+             "kimi_decode": (64, 8, 112, 1901, "bfloat16"),
+             "arctic_decode": (56, 8, 128, 1911, "bfloat16"),
+             "gpt2_decode_f32": (12, 12, 64, 1991, "float32"),
+             "kimi_decode_f32": (64, 8, 112, 1901, "float32"),
+             "arctic_decode_f32": (56, 8, 128, 1911, "float32")}
 
 
 def b1_chunk_case(torch, name):
-    """The inputs and config of a ``B1_CHUNK`` or ``B1_KEPT`` regime."""
+    """The inputs and config of a ``B1_CHUNK``, ``B1_KEPT`` or
+    ``B1_DECODE`` regime."""
     from repro_torch.core import checksum as cks
     from repro_torch.core.efta import EFTAConfig
     if name in B1_CHUNK:
         H, Hkv, D, seed, rows = B1_CHUNK[name]
         C, dtype, unified = 64, "bfloat16", True
+    elif name in B1_DECODE:
+        H, Hkv, D, seed, dtype = B1_DECODE[name]
+        C, unified, rows = 1, True, False
     else:
         H, Hkv, D, seed, C, dtype, unified = B1_KEPT[name]
         rows = C > 1
@@ -2833,7 +2900,9 @@ def b1_chunk_case(torch, name):
 def b1_chunk_tiling(case, cfg):
     """B1's tiling of a case (the built kernel's rule), or None in a
     checkout from before the tile layout, whose wrapper has no rule to
-    ask (its kernel then runs the first layout)."""
+    ask (its kernel then runs the first layout). A checkout from before
+    the decode layout has a rule without the chunk width."""
+    import inspect
     from repro_torch.kernels import efta_paged as ep
     rule = getattr(ep, "kernel_tiling", None)
     if rule is None:
@@ -2841,9 +2910,11 @@ def b1_chunk_tiling(case, cfg):
     q, k = case["q"], case["k"]
     _, H, C, D = q.shape
     hkv, bs = k.shape[1], k.shape[2]
+    kw = ({"chunk": C} if "chunk" in inspect.signature(rule).parameters
+          else {})
     return rule(ep.DTYPES[q.dtype], H // hkv * C, D, bs,
                 case["kc"].c1.shape[-2], cfg.kv_stride(bs),
-                cfg.out_stride(D), case["bt"].shape[1], cfg.unified)
+                cfg.out_stride(D), case["bt"].shape[1], cfg.unified, **kw)
 
 
 def b1_hash(torch, case, cfg):
@@ -2884,7 +2955,7 @@ def phase_b1_chunk(torch, np, seed):
     outputs within ``out_bound`` plus ``p_rounding_slack``); the
     profiler's device time a launch (the fold pass included, and alone),
     the bound, and SDPA in a CUDA graph; and the launches the tile layout
-    leaves on the first layout (``B1_KEPT``: C 1 decode, f32, the per-step
+    leaves on the first layout (``B1_KEPT``: f32 C 64, the per-step
     check), hashed and timed. Run in two checkouts in turns (this file
     copied into the other's root; parent, change, change, parent), the
     kept launches' hashes must agree and the times stand side by side."""
@@ -2989,6 +3060,94 @@ def phase_b1_chunk(torch, np, seed):
                 name="efta_paged_kernel"), **b1_hash(torch, case, cfg))
         del case
     emit({"phase": "b1_chunk", "ok": True, "regimes": res, "kept": kept})
+    return res
+
+
+def phase_b1_decode(torch, np, seed):
+    """B1's decode path (``B1_DECODE``: the C 1 decode step at gpt2's,
+    kimi's and arctic's heads, bf16 and f32), correct mode, on the layout
+    the rule gives it (the decode layout; a checkout from before it runs
+    the first layout): the tiling, the kernel's registers and spills;
+    against the plain version clean, under each compute-site SEU at the
+    decode row's block and a resident flip (counts and bad planes equal,
+    outputs within ``out_bound``); the profiler's device time a launch,
+    the bound and SDPA in a CUDA graph; and :func:`b1_hash`. Run in two
+    checkouts in turns (this file copied into the other's root; parent,
+    change, change, parent), the times stand side by side."""
+    from repro_torch.core.fault import Site, flip_bit_at
+    from repro_torch.kernels.efta_paged import (efta_paged_attention,
+                                                efta_paged_attention_torch)
+    res = {}
+    for name in B1_DECODE:
+        case, cfg = b1_chunk_case(torch, name)
+        t = b1_chunk_tiling(case, cfg)
+        layout = t.layout if t else "narrow"
+        got, launched = b1_launched(
+            lambda: call(efta_paged_attention, case, cfg))
+        check(launched in (None, [layout]),
+              f"b1_decode {name}: launched on {launched}, not the {layout} "
+              f"layout")
+        ref = call(efta_paged_attention_torch, case, cfg)
+        torch.cuda.synchronize()
+        err = compare(torch, got, ref, f"b1_decode {name} clean")
+        check(int(got.detected.sum()) == 0 and not bool(got.bad_blocks.any()),
+              f"b1_decode {name}: detections on clean input")
+        b, h = 1, 1
+        j = (int(case["kv_lens"][b]) - 1) // 16
+        seu = {}
+        for site in (Site.GEMM1, Site.EXP, Site.ROWMAX, Site.ROWSUM,
+                     Site.GEMM2):
+            desc = [int(site), j, b, h, 0, 3, seu_bit("correct"), 1]
+            got_f = call(efta_paged_attention, case, cfg, fault=desc)
+            ref_f = call(efta_paged_attention_torch, case, cfg, fault=desc)
+            err = max(err, compare(torch, got_f, ref_f,
+                                   f"b1_decode {name} {site.name}"))
+            check(int(got_f.detected[b, :5].sum()) >= 1
+                  or site in (Site.GEMM1, Site.GEMM2),
+                  f"b1_decode {name} {site.name}: SEU not detected")
+            seu[site.name] = got_f.detected[b].tolist()
+        jl = (int(case["kv_lens"][2]) - 1) // 16
+        kf = case["k"].clone()
+        hkv, D = kf.shape[1], kf.shape[3]
+        blk = int(case["bt"][2, jl])
+        flip_bit_at(kf, ((blk * hkv + 0) * 16 + 0) * D + 1,
+                    top_exponent_bit(kf))
+        got_k = call(efta_paged_attention, dict(case, k=kf), cfg)
+        ref_k = call(efta_paged_attention_torch, dict(case, k=kf), cfg)
+        err = max(err, compare(torch, got_k, ref_k,
+                               f"b1_decode {name} resident flip"))
+        check(bool(got_k.bad_blocks[2, jl]) and
+              int(got_k.bad_blocks.sum()) == 1,
+              f"b1_decode {name}: resident flip not flagged at its block")
+        kv_det = got_k.detected[2].tolist()
+        del kf, got_k, ref_k
+
+        def fn():
+            return call(efta_paged_attention, case, cfg)
+
+        cap = {"q": case["q"], "k": case["k"],
+               "args": [case["v"], case["kc"], case["vc"], case["bt"],
+                        case["kv_lens"], case["q_lens"]],
+               "kw": {"cfg": cfg, "window": None}}
+        nbytes, flops = launch_work(torch, cap)
+        peak = PEAK_FLOPS[str(case["q"].dtype)]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        lib = library_call(torch, cap)
+        dt = "bf16" if case["q"].dtype == torch.bfloat16 else "f32"
+        res[name] = dict(
+            layout=layout, launched=launched,
+            tiling=t._asdict() if t else None,
+            ptxas=PTXAS.get("efta_paged", {}).get(
+                f"{dt} decode" if layout == "decode" else dt),
+            device_ms=device_ms(torch, fn, 20, name="efta_paged_kernel"),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_device_ms=graph_ms(torch, lib, 20), max_abs_err=err,
+            seu=seu, kv_flip_det=kv_det, **b1_hash(torch, case, cfg))
+        res[name]["sdpa_ratio"] = time_ratio(res[name]["device_ms"],
+                                             res[name]["library_device_ms"])
+        del case, lib
+    emit({"phase": "b1_decode", "ok": True, "regimes": res})
     return res
 
 
@@ -3166,6 +3325,7 @@ def moe_paged(torch, np, arch, seed):
 
     clean = drive(torch, np, engine(), prompts, 32, step_times=True)
     check_b1(clean, L, f"{arch} clean")
+    check_b1_decode_launches(clean["b1_by_layout"], f"{arch} clean")
     check(clean["eng"].telemetry.summary()["detected"] == 0 and
           clean["eng"].paged_stats.kv_detected_blocks == 0,
           f"{arch}: clean detections")
@@ -3175,6 +3335,7 @@ def moe_paged(torch, np, arch, seed):
                  faults_at=exp_seu_on_decode_row(st_exp),
                  before_step=flip_lowest_slot(st_flip, 9, L - 1))
     check_b1(twin, L, f"{arch} faulted twin")
+    check_b1_decode_launches(twin["b1_by_layout"], f"{arch} faulted twin")
     ps = twin["eng"].paged_stats
     check(st_exp.get("hit") is not None, f"{arch}: EXP SEU not detected")
     check(ps.kv_detected_blocks >= 1 and ps.kv_repaired_blocks >= 1,
@@ -5070,7 +5231,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run after device and "
                          "build (dist, vlm, train, dryrun, b2_wide, "
-                         "examples, b1_chunk; b2_narrow runs only so), "
+                         "examples, b1_chunk; b2_narrow and b1_decode run "
+                         "only so), "
                          "for bring-up; prints no result line")
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase dist
@@ -5092,6 +5254,7 @@ def main(argv=None) -> int:
                 "vlm": phase_vlm, "train": phase_train,
                 "dryrun": phase_dryrun, "b2_wide": phase_b2_wide,
                 "b2_narrow": phase_b2_narrow, "b1_chunk": phase_b1_chunk,
+                "b1_decode": phase_b1_decode,
                 "examples": lambda torch, np, seed: phase_examples(torch)}
         for name in args.only.split(","):
             only[name](torch, np, args.seed)

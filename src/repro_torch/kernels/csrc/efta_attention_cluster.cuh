@@ -1,8 +1,9 @@
 // Kernel B2's cluster layout, for KV blocks past the narrow layout (the
 // design note is at the head of efta_attention.cu). Included by
 // efta_attention.cu inside its anonymous namespace, after Params, WPG and
-// the fault-descriptor indices; its Hopper helpers (wgmma, mbarriers,
-// setmaxnreg) are efta_hopper.cuh's.
+// the fault-descriptor indices; its Hopper helpers (the cluster's barrier
+// and distributed shared memory, wgmma, mbarriers, setmaxnreg) are
+// efta_hopper.cuh's.
 //
 // A cluster of n thread blocks (CTAs) takes one tile of TR = 16 W query
 // rows against every KV block the tile sees. CTA `rank` owns the fold
@@ -20,30 +21,6 @@ constexpr int CL_GROUPS = 4;
 constexpr int CL_NT = 8;
 // GEMM I n-tiles of 8 keys a warp at most: chunks of up to 128 keys
 constexpr int CL_KT = 4;
-
-// ---- thread block clusters: rank, barrier, distributed shared memory ----
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// every thread of every CTA of the cluster arrives; shared-memory writes
-// before it are visible to every CTA after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-// the generic address of the same shared-memory location as `p` in CTA
-// `rank`: plain loads read it, and the compiler may batch them between two
-// cluster barriers
-template <typename X>
-__device__ __forceinline__ const X* at_rank(const X* p, unsigned rank) {
-  uint64_t a;
-  asm("mapa.u64 %0, %1, %2;\n" : "=l"(a) : "l"(p), "r"(rank));
-  return reinterpret_cast<const X*>(a);
-}
 
 // shared-memory layout of one CTA of the cluster layout (byte offsets)
 struct CLayout {

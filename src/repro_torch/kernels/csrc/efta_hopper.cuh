@@ -1,9 +1,11 @@
-// Hopper building blocks that kernel B2's cluster and tile layouts share
-// (efta_attention_cluster.cuh, efta_attention_tile.cuh): branch-free
-// division, NaN-propagating min / max, TF32 mma.sync and bf16 splits,
-// wgmma on 8 x 8 core-matrix tiles, mbarriers, the consumer warps' named
-// barrier and the producer warpgroup's setmaxnreg. Header-only, internal
-// linkage, after efta_common.cuh.
+// Hopper building blocks that kernel B2's cluster and tile layouts and
+// kernel B1's tile and decode layouts share (efta_attention_cluster.cuh,
+// efta_attention_tile.cuh, efta_paged_tile.cuh, efta_paged_decode.cuh):
+// branch-free division, NaN-propagating min / max, TF32 mma.sync and bf16
+// splits, the cluster's rank, barrier and distributed shared memory, wgmma
+// on 8 x 8 core-matrix tiles, mbarriers, the consumer warps' named barrier
+// and the producer warpgroup's setmaxnreg. Header-only, internal linkage,
+// after efta_common.cuh.
 #pragma once
 
 #include "efta_common.cuh"
@@ -73,6 +75,39 @@ __device__ __forceinline__ uint32_t pack_bf16_lo(float x, float y,
   const float hx = __uint_as_float(hi << 16);
   const float hy = __uint_as_float(hi & 0xffff0000u);
   return pack_bf16(x - hx, y - hy);
+}
+
+// ---- thread block clusters: rank, barrier, distributed shared memory ----
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster arrives; shared-memory writes
+// before it are visible to every CTA after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// the generic address of the same shared-memory location as `p` in CTA
+// `rank`: plain loads read it, and the compiler may batch them between two
+// cluster barriers
+template <typename X>
+__device__ __forceinline__ const X* at_rank(const X* p, unsigned rank) {
+  uint64_t a;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(a) : "l"(p), "r"(rank));
+  return reinterpret_cast<const X*>(a);
+}
+// the same address to store through: a store reaches CTA `rank`'s shared
+// memory without waiting on it, and is visible there after the next
+// cluster barrier
+template <typename X>
+__device__ __forceinline__ X* to_rank(X* p, unsigned rank) {
+  uint64_t a;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(a) : "l"(p), "r"(rank));
+  return reinterpret_cast<X*>(a);
 }
 
 // ---- bf16 tiles, wgmma, mbarriers ----

@@ -106,8 +106,28 @@
 //     block order over warpgroup k's share of D, p from registers, from
 //     zero, then acc = alpha acc + P V in registers; two consumer barriers
 //     a step.
-// Every tiling the first layout takes and the tile layout does not keeps
-// the first kernel, whose code is unchanged.
+// The decode layout (efta_paged_kernel_decode, efta_paged_decode.cuh)
+// takes the launches of one chunk row (C 1) with unified output
+// verification, bf16 or f32, 16-key blocks at ABFT stride 4, D a multiple
+// of 16 up to 256, wherever one CTA's share of the table fits its shared
+// memory. What held the first layout back there (PERF.md section 6): one CTA
+// a (request, KV head) walked every block of the request in series, three
+// block barriers a step of G blocks, on a 16-row tile whose real rows are
+// the group's grp (1 at gpt2, 7-8 at the moe heads).
+//   * A cluster of 8 CTAs a (request, KV head, 16 query heads); CTA k takes
+//     a contiguous span of the running blocks, so the unit's blocks are
+//     gathered and checked by 8 SMs at once.
+//   * Phase A on the span (state-independent: site 6, GEMM I, the fold
+//     check, the block max), then exchange 1 over distributed shared memory:
+//     each CTA replays the running max in block order from every earlier
+//     block's maximum (a prefix max by shuffles, the shadow max and its SEU
+//     at their block); phase B on the span (EXP and its checks, the rowsum
+//     terms, P V and the O-checksum products from zero), each block's
+//     partials stored into the shared memory of the CTA that owns the row;
+//     exchange 2: each owner folds its rows' running state in block order
+//     and finalizes them. One launch; no workspace; two cluster barriers.
+// Every tiling the first layout takes and the tile and decode layouts do not
+// keeps the first kernel, whose code is unchanged.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
@@ -118,7 +138,7 @@
 // Phase clocks: efta_common.cuh (-DEFTA_PHASE_CLOCKS); tools/b1_phase_split.py
 // names each layout's marks. -DEFTA_PAGED_FIRST_LAYOUT, which only that
 // tool's `--layout narrow` build sets, keeps every shape on the first
-// layout, as the kernel ran before the tile layout.
+// layout, as the kernel ran before the tile and decode layouts.
 #ifdef EFTA_PAGED_FIRST_LAYOUT
 constexpr bool FIRST_LAYOUT_ONLY = true;
 #else
@@ -981,6 +1001,7 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
 }
 
 #include "efta_paged_tile.cuh"
+#include "efta_paged_decode.cuh"
 
 // the tile layout's rule: bf16, unified output verification, grp x C >= 64
 // rows, 16-key blocks at ABFT stride 4, D a multiple of 16 up to 128, s_out
@@ -998,6 +1019,59 @@ bool choose_ptile(int R, int D, int bs, int cs, int skv, int sout, int esz,
     }
   }
   return false;
+}
+
+// the decode layout's rule: one chunk row, unified output verification,
+// 16-key blocks at ABFT stride 4, D a multiple of 16 up to 256, s_out up to
+// 32, and a CTA's share of the table (ceil(mb / 8) blocks: V and the
+// partials exchange 2 reads) within the SM's shared memory. Blocks a
+// phase-A step: the most (at most PD_KG) that leave room for two CTAs an
+// SM, else the most that fit one
+bool choose_pdecode(int R, int C, int D, int bs, int cs, int skv, int sout,
+                    int esz, int unified, int mb, int* KG) {
+  if (FIRST_LAYOUT_ONLY || C != 1 || !unified || R <= 0 || mb <= 0 ||
+      bs != PD_BS || skv != PD_SKV || D <= 0 || D % 16 || D > 256 ||
+      sout <= 0 || sout > 32 || D % sout || cs <= 0 || bs % cs ||
+      (cs * D * esz) % 16)
+    return false;
+  const int span = (mb + PD_CTAS - 1) / PD_CTAS;
+  const size_t caps[2] = {PD_SMEM_PAIR, SMEM_LIMIT};
+  for (int c = 0; c < 2; ++c) {
+    for (int kg = span < PD_KG ? span : PD_KG; kg >= 1; --kg) {
+      if (make_pdecode_layout(kg, R, D, cs, sout, esz, mb).total <=
+          caps[c]) {
+        *KG = kg;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// the decode layout: one launch, a cluster of PD_CTAS CTAs a unit
+template <typename T>
+cudaError_t launch_pdecode(const PDParams& c, cudaStream_t stream) {
+  const size_t bytes = c.L.total;
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      efta_paged_kernel_decode<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(PD_CTAS * c.P.B * c.P.Hkv * c.n_rg);
+  cfg.blockDim = dim3(PD_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = PD_CTAS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, efta_paged_kernel_decode<T>, c);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // the tile layout: the fold pass, then one CTA for each 64-row tile
@@ -1035,18 +1109,27 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// Row tiles per (request, kv head) for these shapes, or 0 when the kernel
-// takes no tiling of them. dtype as below; unified as the launch's. With
-// `tiling` (6 ints, or NULL) also the choice:
+// Row tiles per (request, kv head) for these shapes (the decode layout:
+// CTAs, 8 a unit of 16 rows), or 0 when the kernel takes no tiling of
+// them. dtype as below; unified and the chunk width C as the launch's.
+// With `tiling` (7 ints, or NULL) also the choice:
 // {row groups W, blocks a step G, ring stages ST, shared-memory bytes, the
 // fold pass's floats a (request, KV head, block) (0 but on the tile
-// layout), the tile layout}.
+// layout), the tile layout, CTAs a cluster (0 but on the decode layout)}.
 int efta_paged_tiling(int dtype, int R, int D, int bs, int cs, int s_kv,
-                      int s_out, int mb, int unified, int* tiling) {
+                      int s_out, int mb, int unified, int chunk,
+                      int* tiling) {
   const int esz = dtype == 0 ? 4 : 2;
-  int W = 0, G = 0, ST = 0, smem = 0, floats = 0, n = 0;
+  int W = 0, G = 0, ST = 0, smem = 0, floats = 0, n = 0, cl = 0;
   const bool pt = choose_ptile(R, D, bs, cs, s_kv, s_out, esz, unified, &ST);
-  if (pt) {
+  if (choose_pdecode(R, chunk, D, bs, cs, s_kv, s_out, esz, unified, mb,
+                     &G)) {
+    W = PD_ROWS / 16;
+    ST = 1;
+    smem = (int)make_pdecode_layout(G, R, D, cs, s_out, esz, mb).total;
+    cl = PD_CTAS;
+    n = (R + PD_ROWS - 1) / PD_ROWS * PD_CTAS;
+  } else if (pt) {
     W = PT_ROWS / 16;
     G = PT_G;
     smem = (int)make_ptile_layout(ST, D, s_out).total;
@@ -1060,8 +1143,8 @@ int efta_paged_tiling(int dtype, int R, int D, int bs, int cs, int s_kv,
     n = (R + 16 * W - 1) / (16 * W);
   }
   if (tiling) {
-    const int v[6] = {W, G, ST, smem, floats, pt ? 1 : 0};
-    for (int i = 0; i < 6; ++i) tiling[i] = v[i];
+    const int v[7] = {W, G, ST, smem, floats, pt && !cl ? 1 : 0, cl};
+    for (int i = 0; i < 7; ++i) tiling[i] = v[i];
   }
   return n;
 }
@@ -1078,7 +1161,8 @@ const char* efta_paged_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools, checksum planes and out).
-// Pointers are device pointers; rep is (B, Hkv, tiles, 6) int32. Where the
+// Pointers are device pointers; rep is (B, Hkv, tiles, 6) int32 (tiles as
+// efta_paged_tiling returns them; the decode layout's are CTAs). Where the
 // tiling takes the tile layout, ws holds the fold pass's (B, Hkv, mb) slots
 // (efta_paged_tiling gives the floats a slot); else it is unused. The
 // launch goes on `stream`.
@@ -1133,6 +1217,20 @@ int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
   for (int i = 0; i < 8; ++i) p.fault[i] = f[i];
   cudaStream_t s = (cudaStream_t)stream;
   const int esz = dtype == 0 ? 4 : 2;
+  int KG = 0;
+  if (choose_pdecode(R, chunk, D, bs, cs, s_kv, s_out, esz, unified, mb,
+                     &KG)) {
+    PDParams c;
+    c.P = p;
+    c.KG = KG;
+    c.n_rg = (R + PD_ROWS - 1) / PD_ROWS;
+    c.P.n_tiles = c.n_rg * PD_CTAS;
+    c.L = make_pdecode_layout(KG, R, D, cs, s_out, esz, mb);
+    if ((long long)PD_CTAS * B * Hkv * c.n_rg > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? launch_pdecode<float>(c, s)
+                            : launch_pdecode<__nv_bfloat16>(c, s));
+  }
   if (choose_ptile(R, D, bs, cs, s_kv, s_out, esz, unified, &p.ST)) {
     p.n_tiles = (R + PT_ROWS - 1) / PT_ROWS;
     if (ws == nullptr || B > 65535) return (int)cudaErrorInvalidValue;

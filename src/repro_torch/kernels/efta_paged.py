@@ -466,18 +466,23 @@ _ARGTYPES = ([ctypes.c_int]                        # dtype code
 
 # csrc/efta_paged.cu's constants: one SM's shared memory, the first
 # layout's threads a block and fold segments; the tile layout's rows a CTA,
-# blocks a step, keys a block, ABFT stride, GEMM II n-tiles a warpgroup
+# blocks a step, keys a block, ABFT stride, GEMM II n-tiles a warpgroup;
+# the decode layout's CTAs a cluster, rows a unit, warps a CTA, blocks a
+# phase-A step at most, score row stride and row scalars a block
 _SMEM_LIMIT = 232448
 _MAX_THREADS = 512
 _MAX_G = 32
 _PT_ROWS, _PT_G, _PT_BS, _PT_SKV, _PT_NT2 = 64, 4, 16, 4, 4
+_PD_CTAS, _PD_ROWS, _PD_WARPS, _PD_KG, _PD_LDS, _PD_RN = 8, 16, 8, 4, 20, 2
+_PD_SMEM_PAIR = 115712     # shared bytes a CTA for two CTAs an SM
 
 
 class PagedTiling(NamedTuple):
     """The kernel's choice for one call's shapes: 16-row groups a thread
     block W, KV blocks a step G, ring stages ST, shared-memory bytes, the
     fold pass's floats a (request, KV head, block) (0 but on the tile
-    layout) and the tile layout."""
+    layout), the tile layout, and the CTAs of a cluster (0 but on the decode
+    layout, whose G is the blocks of a phase-A step)."""
 
     W: int
     G: int
@@ -485,16 +490,18 @@ class PagedTiling(NamedTuple):
     smem: int
     fold_floats: int
     tile: int
+    cluster: int = 0
 
     @property
     def layout(self) -> str:
-        """"tile" or "narrow" (the first layout)."""
-        return "tile" if self.tile else "narrow"
+        """"decode", "tile" or "narrow" (the first layout)."""
+        return ("decode" if self.cluster else "tile" if self.tile
+                else "narrow")
 
     @property
     def rows(self) -> int:
-        """Rows of a thread block: a tile of the rows of one (request, KV
-        head)."""
+        """Rows of a thread block (the decode layout: of a cluster's unit):
+        a tile of the rows of one (request, KV head)."""
         return _PT_ROWS if self.tile else 16 * self.W
 
 
@@ -544,17 +551,54 @@ def _tile_layout(ST, D, sout) -> int:
     return sum(_up16(n) for n in parts)
 
 
+def _decode_layout(KG, R, D, cs, sout, esz, mb) -> int:
+    """Shared-memory bytes of one CTA of the decode layout:
+    ``make_pdecode_layout``."""
+    ldk, ldo = (D + 8 if esz == 2 else D + 1), D + 4
+    ru = min(R, _PD_ROWS)
+    ro = -(-ru // _PD_CTAS)
+    span = -(-mb // _PD_CTAS)
+    rb = ro * span * _PD_CTAS          # owned rows x blocks a unit
+    tile = _PT_BS * ldk * esz
+    slot = sum(_up16(n) for n in (tile, ru * _PD_LDS * 4, ru * _PT_SKV * 4,
+                                  ru * _PD_RN * 4))
+    kslot = _up16(tile) + _up16(4 * cs * D * esz)
+    parts = (mb * 4, _PD_ROWS * ldk * esz, span * slot,
+             max(KG * kslot, _PD_WARPS * 2 * _PT_BS * sout * 4),
+             rb * 16, rb * ldo * 4, rb * 2 * sout * 4,
+             (ro * ldo + 2 * ro * sout + 4 * ro) * 4, _PD_CTAS * 4,
+             _PD_WARPS * 8 * 4)
+    return sum(_up16(n) for n in parts)
+
+
 def tiling(dtype_code: int, R: int, D: int, bs: int, cs: int, s_kv: int,
-           s_out: int, mb: int, unified: bool = True
+           s_out: int, mb: int, unified: bool = True, *, chunk: int
            ) -> Optional[PagedTiling]:
-    """The kernel's tiling of these shapes, or None where it takes none:
+    """The kernel's tiling of these shapes (R = grp x ``chunk`` rows a
+    (request, KV head)), or None where it takes none:
     ``efta_paged_tiling`` of ``csrc/efta_paged.cu`` in Python
     (``tests/test_torch_cuda.py`` holds the two equal on the card). The
-    tile layout wherever it holds the shapes (bf16, ``unified``, R = grp x
-    C >= 64, 16-key blocks at ABFT stride 4, D a multiple of 16 up to 128,
-    ``s_out`` up to 32, the check stride dividing the block): three ring
-    stages before two. Else :func:`_first_tiling`."""
+    decode layout wherever it holds the shapes (one chunk row, ``unified``,
+    bf16 or f32, 16-key blocks at ABFT stride 4, D a multiple of 16 up to
+    256, ``s_out`` up to 32, the check stride dividing the block, a CTA's
+    share of the table, ceil(mb / 8) blocks, within the SM's shared memory):
+    the most blocks a phase-A step, at most 4, that leave room for two CTAs
+    an SM, else the most that fit one. Else the tile layout wherever
+    it holds the shapes (bf16, ``unified``, R >= 64, 16-key blocks at ABFT
+    stride 4, D a multiple of 16 up to 128, ``s_out`` up to 32, the check
+    stride dividing the block): three ring stages before two. Else
+    :func:`_first_tiling`."""
     esz = 4 if dtype_code == 0 else 2
+    if (chunk == 1 and unified and R > 0 and mb > 0 and bs == _PT_BS
+            and s_kv == _PT_SKV and D > 0 and D % 16 == 0 and D <= 256
+            and 0 < s_out <= 32 and D % s_out == 0 and cs > 0
+            and bs % cs == 0 and cs * D * esz % 16 == 0):
+        for cap in (_PD_SMEM_PAIR, _SMEM_LIMIT):
+            for kg in range(min(-(-mb // _PD_CTAS), _PD_KG), 0, -1):
+                smem = _decode_layout(kg, R, D, cs, s_out, esz, mb)
+                if smem <= cap:
+                    return PagedTiling(_PD_ROWS // 16, kg, 1, smem, 0, 0,
+                                       _PD_CTAS)
     if (esz == 2 and unified and R >= _PT_ROWS and bs == _PT_BS
             and s_kv == _PT_SKV and D % 16 == 0 and D <= 32 * _PT_NT2
             and 0 < s_out <= 32 and D % s_out == 0 and cs > 0
@@ -594,7 +638,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if not getattr(lib, "_efta_bound", False):
         lib.efta_paged_launch.argtypes = _ARGTYPES
         lib.efta_paged_launch.restype = ctypes.c_int
-        lib.efta_paged_tiling.argtypes = ([ctypes.c_int] * 9
+        lib.efta_paged_tiling.argtypes = ([ctypes.c_int] * 10
                                           + [ctypes.POINTER(ctypes.c_int)])
         lib.efta_paged_tiling.restype = ctypes.c_int
         lib.efta_paged_error_string.argtypes = [ctypes.c_int]
@@ -608,14 +652,14 @@ def _lib():
 
 
 def kernel_tiling(dtype_code: int, R: int, D: int, bs: int, cs: int,
-                  s_kv: int, s_out: int, mb: int, unified: bool = True
-                  ) -> Optional[PagedTiling]:
+                  s_kv: int, s_out: int, mb: int, unified: bool = True, *,
+                  chunk: int) -> Optional[PagedTiling]:
     """What the built kernel's C entry point ``efta_paged_tiling`` chooses
     for these shapes (None: no tiling); :func:`tiling` mirrors it. Builds
     the kernel on first use."""
-    buf = (ctypes.c_int * 6)()
+    buf = (ctypes.c_int * 7)()
     n = _lib().efta_paged_tiling(dtype_code, R, D, bs, cs, s_kv, s_out, mb,
-                                 int(unified), buf)
+                                 int(unified), chunk, buf)
     return PagedTiling(*buf) if n > 0 else None
 
 
@@ -662,9 +706,10 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     ints = [t.to(device=dev, dtype=torch.int32).contiguous()
             for t in (block_tables, kv_lens, call.q_lens)]
     lib = _lib()
-    buf = (ctypes.c_int * 6)()
+    buf = (ctypes.c_int * 7)()
     n_tiles = lib.efta_paged_tiling(DTYPES[dtype], R, D, bs, cs, call.s_kv,
-                                    call.s_out, mb, int(cfg.unified), buf)
+                                    call.s_out, mb, int(cfg.unified),
+                                    call.chunk, buf)
     if n_tiles <= 0:
         raise ValueError(f"efta_paged kernel: block {bs} (strides {cs}, "
                          f"{call.s_kv}) x head_dim {D} has no tiling that "
@@ -691,7 +736,8 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
                            f"failed: CUDA error {rc} ({msg})")
     efta_paged_attention.launches += 1
     efta_paged_attention.launches_by_layout[(t.layout, call.chunk)] += 1
-    # per-row-tile partial counts, summed here: no atomics, deterministic
+    # per-row-tile (decode: per-CTA) partial counts, summed here: no
+    # atomics, deterministic
     return out, rep.sum(dim=(1, 2), dtype=torch.int32), bad.any(dim=1)
 
 

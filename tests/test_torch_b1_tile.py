@@ -8,9 +8,11 @@ allocates.
   ``test_paged_tiling_mirror_equals_the_kernels_rule`` holds it to the C
   rule on the card) takes the tile layout at the chunk path's regimes in
   bf16 (arctic's and kimi's C 64, gpt2's prefill) and keeps the first
-  layout for decode (C 1), f32, the per-step output check, fewer than 64
-  rows, other block sizes and strides, D over 128; shared bytes within the
-  SM's 227 KB.
+  layout for f32, the per-step output check, fewer than 64 rows, other
+  block sizes and strides, D over 128, and a decode shape (C 1) whose table
+  the decode layout's cluster cannot hold (C 1 otherwise takes the decode
+  layout: ``tests/test_torch_b1_decode.py``); shared bytes within the SM's
+  227 KB.
 * The wrapper sizes the fold scratch as the card's kernel reads it.
 * A shape the rule gives the tile layout never falls back: when its launch
   fails, the wrapper raises, and neither the first layout nor the plain
@@ -46,7 +48,7 @@ def _fold_floats(d, sout):
 @pytest.mark.parametrize("regime", sorted(HEADS))
 def test_mirror_takes_the_tile_layout_at_the_chunk_path(regime):
     shapes = _shapes(regime)
-    t = b1.tiling(*shapes)
+    t = b1.tiling(*shapes, chunk=64)
     assert t is not None and t.layout == "tile", t
     assert (t.W, t.G, t.rows) == (4, 4, 64) and t.ST in (3, 2)
     assert t.smem <= b1._SMEM_LIMIT
@@ -56,10 +58,12 @@ def test_mirror_takes_the_tile_layout_at_the_chunk_path(regime):
 @pytest.mark.parametrize("case", ["decode", "rows_48", "f32", "per_step",
                                   "block_32", "stride_8", "d_256"])
 def test_mirror_keeps_the_first_layout(case):
-    kw = {}
+    kw = {"chunk": 64}
     shapes = list(_shapes("kimi"))
     if case == "decode":
-        shapes[1] = 8                     # C 1: grp rows
+        # C 1 (grp rows) in f32 over a 256-block table: a CTA's 32 blocks
+        # of V and partials exceed the decode layout's shared memory
+        shapes[0], shapes[1], shapes[7], kw["chunk"] = F32, 8, 256, 1
     elif case == "rows_48":
         shapes[1] = 48
     elif case == "f32":
@@ -82,7 +86,7 @@ def test_tile_layout_shared_bytes_at_arctic():
     its 16 fold rows, V, the V checksums), Q, two steps' scores of 68-float
     rows, the checksum products, the row state, the O checksums, the
     counts, the mbarriers: 192 bytes under the SM's 232,448."""
-    t = b1.tiling(*_shapes("arctic"))
+    t = b1.tiling(*_shapes("arctic"), chunk=64)
     slot = 48 * 128 * 2 + 16 * 16 * 4
     parts = [3 * 4 * slot, 64 * 128 * 2, 4 * 2 * 64 * 68, 4 * 2 * 64 * 4 * 4,
              (33 * 64 + 4) * 4, 2 * 64 * 8 * 4, 16 * 8 * 4, 2 * 3 * 8]
@@ -102,14 +106,14 @@ def test_first_layout_tilings_of_the_parent():
 @pytest.mark.parametrize("regime", sorted(HEADS))
 def test_fold_scratch_is_sized_as_the_card_reads_it(regime):
     B, hkv, mb = 8, 8, 64
-    t = b1.tiling(*_shapes(regime))
+    t = b1.tiling(*_shapes(regime), chunk=64)
     ws = b1.fold_scratch(t, B, hkv, mb, "meta")
     assert ws.dtype == torch.float32
     assert ws.shape == (B, hkv, mb, t.fold_floats)
     # each slot starts on 16 bytes: the producer copies it with cp.async
     assert t.fold_floats % 4 == 0
-    assert b1.fold_scratch(b1.tiling(*_shapes(regime, C=1)), B, hkv, mb,
-                           "meta") is None
+    assert b1.fold_scratch(b1.tiling(*_shapes(regime, C=1), chunk=1), B,
+                           hkv, mb, "meta") is None
 
 
 class _FakeLib:
@@ -122,12 +126,12 @@ class _FakeLib:
         self.launch = None
 
     def efta_paged_tiling(self, *a):
-        t = b1.tiling(*a[:9])
+        t = b1.tiling(*a[:9], chunk=a[9])
         if t is None:
             return 0
         for i, v in enumerate(t):
-            a[9][i] = v
-        return -(-a[1] // t.rows)
+            a[10][i] = v
+        return -(-a[1] // t.rows) * (t.cluster or 1)
 
     def efta_paged_launch(self, *a):
         self.launch = a
@@ -137,7 +141,7 @@ class _FakeLib:
         return b"invalid argument"
 
 
-def _launch(regime, C, lib, monkeypatch):
+def _launch(regime, C, lib, monkeypatch, cfg=CFG):
     """``_paged_cuda`` on CPU tensors of a small step (2 requests of 64
     tokens, one KV head) against ``lib``, with the plain version barred."""
     grp, d = HEADS[regime]
@@ -156,10 +160,10 @@ def _launch(regime, C, lib, monkeypatch):
     monkeypatch.setattr(b1, "_lib", lambda: lib)
     monkeypatch.setattr(b1, "_stream", lambda dev: 0)
     monkeypatch.setattr(b1, "_paged_torch", no_plain)
-    call = b1._prepare(q, k, kc, bt, lens, None, cfg=CFG,
+    call = b1._prepare(q, k, kc, bt, lens, None, cfg=cfg,
                        check_threshold=None, window=None, sm_scale=None,
                        fault=None)
-    return b1._paged_cuda(call, k, v, kc, vc, bt, lens, CFG)
+    return b1._paged_cuda(call, k, v, kc, vc, bt, lens, cfg)
 
 
 @pytest.mark.parametrize("regime", ["kimi", "gpt2"])
@@ -176,17 +180,21 @@ def test_a_tile_shape_raises_and_never_falls_back(regime, monkeypatch):
 
 @pytest.mark.parametrize("regime,C,layout", [("kimi", 64, "tile"),
                                              ("gpt2", 64, "tile"),
-                                             ("kimi", 1, "narrow")])
+                                             ("kimi", 1, "narrow"),
+                                             ("kimi", 1, "decode")])
 def test_a_launch_is_counted_by_layout_and_chunk_width(regime, C, layout,
                                                        monkeypatch):
     """The wrapper counts a launch where it launches, under the layout the
-    rule gave it and the call's chunk width."""
+    rule gave it and the call's chunk width. A C 1 launch with the per-step
+    output check keeps the first layout."""
     ea = b1.efta_paged_attention
     monkeypatch.setattr(ea, "launches", 0)
     monkeypatch.setattr(ea, "launches_by_layout", type(
         ea.launches_by_layout)())
     lib = _FakeLib(0)
-    _launch(regime, C, lib, monkeypatch)
+    cfg = (EFTAConfig(mode="correct", stride=128, block_kv=16, unified=False)
+           if layout == "narrow" else CFG)
+    _launch(regime, C, lib, monkeypatch, cfg)
     assert ea.launches == 1
     assert dict(ea.launches_by_layout) == {(layout, C): 1}
     assert bool(lib.launch[-2]) == (layout == "tile")   # the fold scratch

@@ -738,7 +738,8 @@ def test_contiguous_kernel_decode_layout(regime, dtype, mode, site):
 @pytest.mark.cuda
 def test_paged_tiling_mirror_equals_the_kernels_rule():
     """``efta_paged.tiling`` (the C rule in Python) against the built
-    kernel's ``efta_paged_tiling``, refusals included."""
+    kernel's ``efta_paged_tiling``, refusals included, at chunk widths 1
+    (the decode layout's) and 64."""
     from repro_torch.kernels import efta_paged as mod
     cuda_or_skip()
     for code in (0, 1):
@@ -746,13 +747,17 @@ def test_paged_tiling_mirror_equals_the_kernels_rule():
             for d in (16, 48, 64, 112, 128, 160, 256):
                 for bs, cs in ((16, 8), (16, 16), (32, 8), (64, 8)):
                     for skv in (2, 4, 8):
-                        for mb in (8, 64):
+                        for mb in (8, 64, 256):
                             for unified in (True, False):
-                                shapes = (code, R, d, bs, cs, skv,
-                                          EFTAConfig().out_stride(d), mb,
-                                          unified)
-                                assert mod.tiling(*shapes) == \
-                                    mod.kernel_tiling(*shapes), shapes
+                                for chunk in (1, 64):
+                                    shapes = (code, R, d, bs, cs, skv,
+                                              EFTAConfig().out_stride(d), mb,
+                                              unified)
+                                    assert mod.tiling(
+                                        *shapes, chunk=chunk) == \
+                                        mod.kernel_tiling(
+                                            *shapes, chunk=chunk), \
+                                        (shapes, chunk)
 
 
 def _tile_case(dev, *, grp, hd, seed, hkv=2, mb=16, full=False, shared=0):
@@ -851,7 +856,7 @@ def test_paged_kernel_tile_layout(regime, run):
     hkv, bs, d = k.shape[1], k.shape[2], k.shape[3]
     t = mod.kernel_tiling(mod.DTYPES[torch.bfloat16], shape["grp"] * 64, d,
                           bs, 8, cfg.kv_stride(bs), cfg.out_stride(d),
-                          args[5].shape[1], True)
+                          args[5].shape[1], True, chunk=64)
     assert t.layout == "tile" and t.fold_floats > 0, t
     fault = None
     site = run.split("_")[-1]
@@ -915,3 +920,116 @@ def test_paged_kernel_tile_layout(regime, run):
         # (in bf16 a flip that shrinks p stays under the EXP check's
         # relative threshold of 1; in correct mode the backstop counts it)
         assert det[0, :5].sum() >= 1, det
+
+
+# --- kernel B1's decode layout (csrc/efta_paged_decode.cuh) -----------------
+
+# (query heads a KV head, head_dim): gpt2's, gemma3-1b's, arctic's, kimi's
+# and a 16-head group (one full mma tile a unit)
+B1_DECODE = {"grp1_d64": (1, 64), "grp4_d256": (4, 256), "grp7_d128": (7, 128),
+             "grp8_d112": (8, 112), "grp16_d64": (16, 64)}
+B1_DECODE_RUNS = (["clean", "off", "window"]
+                  + [f"{m}{s}" for m in ("", "detect_")
+                     for s in ("GEMM1", "EXP", "ROWMAX", "ROWSUM", "GEMM2")]
+                  + ["k_flip_first", "v_flip_mid", "k_flip_last"])
+
+
+def _decode_case(dev, dtype, *, grp, hd, seed, mb, hkv=2):
+    """A decode step (C 1) of 5 requests over fragmented 64-block (gemma3's
+    f32: 32-block) tables: a context of 1 token, of 16 (one whole block), a
+    full table, a ragged one, and an idle slot (q_len 0: its blocks are
+    streamed and verified, its rows computed and counted)."""
+    g = torch.Generator().manual_seed(seed)
+    B, bs = 5, 16
+    lens = [1, 16, mb * bs, int(torch.randint(17, mb * bs, (1,),
+                                              generator=g)),
+            int(torch.randint(1, mb * bs + 1, (1,), generator=g))]
+    need = [-(-n // bs) for n in lens]
+    nb = sum(need) + 2
+    ids = (torch.randperm(nb, generator=g) + 1).tolist()
+    bt = torch.zeros((B, mb), dtype=torch.int32)
+    for b in range(B):
+        bt[b, :need[b]] = torch.tensor([ids.pop() for _ in range(need[b])],
+                                       dtype=torch.int32)
+    k = torch.randn((nb + 1, hkv, bs, hd), generator=g)
+    v = torch.randn((nb + 1, hkv, bs, hd), generator=g)
+    q = torch.randn((B, hkv * grp, 1, hd), generator=g)
+    k, v, q = (x.to(dev, dtype) for x in (k, v, q))
+    q_lens = torch.tensor([1, 1, 1, 1, 0], dtype=torch.int32, device=dev)
+    return [q, k, v, cks.encode_kv(k, 8), cks.encode_kv(v, 8), bt.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), q_lens]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B1_DECODE))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("run", B1_DECODE_RUNS)
+def test_paged_kernel_decode_layout(regime, dtype, run):
+    from repro_torch.kernels import efta_paged as mod
+    dev = cuda_or_skip()
+    grp, hd = B1_DECODE[regime]
+    mb = 32 if (hd == 256 and dtype == torch.float32) else 64
+    args = _decode_case(dev, dtype, grp=grp, hd=hd, mb=mb,
+                        seed=71 + B1_DECODE_RUNS.index(run))
+    mode = ("detect" if run.startswith("detect") else
+            "off" if run == "off" else "correct")
+    cfg = EFTAConfig(mode=mode, stride=128, block_kv=16)
+    window = 512 if run == "window" else None
+    k = args[1]
+    hkv, bs = k.shape[1], k.shape[2]
+    t = mod.kernel_tiling(mod.DTYPES[dtype], grp, hd, bs, 8,
+                          cfg.kv_stride(bs), cfg.out_stride(hd), mb, True,
+                          chunk=1)
+    assert t.layout == "decode", t
+    fault = None
+    site = run.split("_")[-1]
+    last = mb - 1
+    if site in Site.__members__:
+        # request 2 (the full table), KV head 1, its last query head: in
+        # the decode row's block in correct mode, a middle one in detect
+        j = last if mode == "correct" else mb // 2
+        fault = [int(Site[site]), j, 2, 1, grp - 1, 3,
+                 (30 if dtype == torch.float32 else 14)
+                 if mode == "correct" else 27, 1]
+    if "flip" in run:
+        # a resident flip of the top exponent bit in request 2's first,
+        # middle or last block, KV head 1: a K element grown by 2^128, or a
+        # V element of magnitude 2 or more shrunk by 2^-128
+        i = 1 if run.startswith("k_") else 2
+        j = {"first": 0, "mid": mb // 2, "last": last}[run.split("_")[-1]]
+        pool = args[i].clone()
+        blk = int(args[5][2, j])
+        top = 30 if dtype == torch.float32 else 14
+        at = ((blk * hkv + 1) * bs + 2) * hd + 5
+        if i == 2:
+            tile = pool[blk, 1].float().abs().flatten()
+            at = (blk * hkv + 1) * bs * hd + int(torch.nonzero(tile >= 2)[0])
+        flip_bit_at(pool, at, top)
+        args[i] = pool
+    launches = mod.efta_paged_attention.launches_by_layout[("decode", 1)]
+    got = efta_paged_attention(*args, cfg=cfg, fault=fault, window=window)
+    assert mod.efta_paged_attention.launches_by_layout[("decode", 1)] == \
+        launches + 1
+    plain = efta_paged_attention_torch(*args, cfg=cfg, fault=fault,
+                                       window=window)
+    ref = to_np(plain.out.float())
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.where(fin, 0, to_np(got.out.float())),
+                                  np.where(fin, 0, ref))
+    bound = _bound(plain.out)
+    if dtype == torch.bfloat16:
+        bound = bound + _tile_slack(args, window,
+                                    fault if mode == "detect" else None)
+    diff = np.abs(to_np(got.out.float()) - ref)[fin]
+    assert (diff <= bound[fin]).all(), \
+        f"max |kernel - plain| {diff.max():.3e} over its bound"
+    np.testing.assert_array_equal(to_np(got.detected), to_np(plain.detected))
+    np.testing.assert_array_equal(to_np(got.bad_blocks),
+                                  to_np(plain.bad_blocks))
+    det = to_np(got.detected)
+    if run in ("clean", "off", "window"):
+        assert det.sum() == 0 and not to_np(got.bad_blocks).any()
+    elif "flip" in run:
+        assert to_np(got.bad_blocks)[2, j] and to_np(got.bad_blocks).sum() == 1
+    elif mode == "correct" and site in ("EXP", "ROWSUM"):
+        assert det[2, :5].sum() >= 1, det

@@ -258,6 +258,62 @@ def test_chunked_compute_site_seus_corrected():
         assert got[2].sum() == 0
 
 
+# decode steps (C 1: q of (B, H, D)) at the moe heads' query groups, 7 and
+# 8 query heads a KV head, at narrow head dims, over fragmented ragged
+# tables of 4 blocks with loud stale rows: the shapes the kernel's decode
+# layout takes, whose plain version is held here. Each compute-site SEU
+# strikes the last query head of request b's KV head 1 in a middle and in
+# the last block of b's context; a resident flip strikes K or V in b's last
+# block.
+DECODE = {"grp7_d16": dict(grp=7, hd=16), "grp8_d32": dict(grp=8, hd=32)}
+DECODE_RUNS = ["clean", "k_flip", "v_flip"] + [
+    f"{site}_{at}" for site in ("GEMM1", "EXP", "ROWMAX", "ROWSUM", "GEMM2")
+    for at in ("mid", "last")]
+
+
+@pytest.mark.parametrize("shape", sorted(DECODE))
+@pytest.mark.parametrize("run", DECODE_RUNS)
+def test_decode_parity_per_site_and_block(shape, run):
+    grp = DECODE[shape]["grp"]
+    case = _make_case(60 + DECODE_RUNS.index(run), B=3, mb=4, bs=16, hkv=2,
+                      cs=8, stale_scale=50.0, **DECODE[shape])
+    b = int(np.argmax(case["lens"]))
+    last = (int(case["lens"][b]) - 1) // 16
+    kw = {}
+    if run.endswith(("_mid", "_last")):
+        site, at = run.rsplit("_", 1)
+        j = last if at == "last" else last // 2
+        kw["fault"] = [int(Site[site]), j, b, 1, grp - 1, 3, 27, 1]
+    elif run != "clean":
+        hkv, bs, hd = case["pk"].shape[1:]
+        key = "pk" if run == "k_flip" else "pv"
+        pool = case[key].copy()
+        fill = int(case["lens"][b]) - last * bs
+        blk = int(case["bt"][b, last])
+        # bit 27 of the row's largest element under 2 in magnitude: set for
+        # 0.5 <= |x| < 2, so the flip scales it by 2^-16, far past the
+        # verify's relative threshold. (A flip that grows a key by 2^16
+        # makes scores of ~1e5, whose GEMM I checks at their absolute
+        # threshold then count by the order of f32 sums, which the two
+        # versions do not share.)
+        row = np.abs(pool[blk, 1, fill - 1])
+        col = int(np.argmax(np.where(row < 2, row, 0)))
+        flat = ((blk * hkv + 1) * bs + fill - 1) * hd + col
+        flip_bit_at(torch.from_numpy(pool), flat, 27)
+        kw[key] = pool
+    ref, got = _run_both(case, stride=128, **kw)
+    _assert_parity(ref, got)
+    if run == "clean":
+        assert got[1].sum() == 0 and not got[2].any()
+    elif run in ("k_flip", "v_flip"):
+        assert got[2][b, last] and got[2].sum() == 1
+        assert got[1][b, 5] == 1
+    else:
+        assert not got[2].any()
+        if not run.startswith("ROWMAX"):   # may cancel analytically
+            assert got[1][b, :5].sum() >= 1, run
+
+
 def test_sliding_window_masks_like_the_contiguous_path():
     case = _make_case(5, B=2, mb=3, bs=16, hkv=2, grp=2, hd=16, cs=8)
     ref, got = _run_both(case, window=9)

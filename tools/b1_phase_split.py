@@ -1,21 +1,24 @@
-"""Where kernel B1 spends its time at a chunk-path regime, phase by phase, on
-the card: arctic-480b's and kimi-k2's C 64 steps with decode rows (phase
-19's bf16 inputs) and a gpt2 prefill step, each in ``B1_CHUNK`` of
-``chip_smoke.py``; bf16, correct mode.
+"""Where kernel B1 spends its time at a chunk-path or a decode regime, phase
+by phase, on the card: arctic-480b's and kimi-k2's C 64 steps with decode
+rows (phase 19's bf16 inputs) and a gpt2 prefill step (``B1_CHUNK`` of
+``chip_smoke.py``), or the C 1 decode step at gpt2's, kimi's and arctic's
+heads in bf16 and f32 (``B1_DECODE``); correct mode.
 
     PYTHONPATH=src python tools/b1_phase_split.py [--regime NAME[,NAME..]]
-        [--layout tile|narrow] [--out FILE]
+        [--layout tile|decode|narrow] [--out FILE]
 
 Builds ``csrc/efta_paged.cu`` with its phase clocks on (``phase_clocks.py``)
 and launches B1 on the regime's inputs on the layout its rule takes
-(``--layout tile``, the default), or with ``-DEFTA_PAGED_FIRST_LAYOUT``
-on the first layout for the same shapes (``--layout narrow``: the kernel
-as it ran before the tile layout). One JSON line a regime: the tiling (W,
-G, ST, shared bytes, layout), the cycles and share of each phase of that
-layout, and the launch's CUDA-event time with the clocks on (the tile
-layout's fold pass, a kernel of its own without marks, included). Thread
-0 sits in the first row group (the first layout) or the first warpgroup
-(the tile layout), so a row phase's share is its rows', and waits for the
+(``--layout tile``, the default, or ``decode``), or with
+``-DEFTA_PAGED_FIRST_LAYOUT`` on the first layout for the same shapes
+(``--layout narrow``: the kernel as it ran before the tile and decode
+layouts). One JSON line a regime: the tiling (W, G, ST, shared bytes,
+layout), the cycles and share of each phase of that layout, and the
+launch's CUDA-event time with the clocks on (the tile layout's fold pass,
+a kernel of its own without marks, included). Thread 0 sits in the first
+row group (the first layout), the first warpgroup (the tile layout) or the
+warp of each CTA's first block (the decode layout; every CTA of a cluster
+adds its clocks), so a row phase's share is its rows', and waits for the
 other warps land in the barrier that follows. Needs the card and ``nvcc``.
 """
 from __future__ import annotations
@@ -38,6 +41,12 @@ PHASES = {
              "running max, EXP, rowsum terms", "running state, O checksums",
              "barriers before GEMM II and the finalize", "GEMM II, rescale",
              "finalize"),
+    "decode": ("setup", "K/V waits",
+               "A: site 6, GEMM I, fold check, block max",
+               "cluster barrier 1", "exchange 1: running max, alpha",
+               "B: EXP, rowsum terms, P V, O-checksum products, max|V|",
+               "cluster barrier 2", "exchange 2: running state",
+               "finalize, counts"),
 }
 
 
@@ -45,18 +54,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    regimes = [*cs.B1_CHUNK, *cs.B1_DECODE]
     ap.add_argument("--regime", default=",".join(cs.B1_CHUNK),
-                    help="one or more of " + ", ".join(cs.B1_CHUNK) +
+                    help="one or more of " + ", ".join(regimes) +
                     ", comma-separated")
     ap.add_argument("--layout", default="tile", choices=sorted(PHASES))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default="", help="append the JSON lines here")
     args = ap.parse_args(argv)
     names = args.regime.split(",")
-    unknown = [n for n in names if n not in cs.B1_CHUNK]
+    unknown = [n for n in names if n not in regimes]
     if unknown:
-        ap.error(f"unknown regime(s) {unknown}; choose from "
-                 f"{list(cs.B1_CHUNK)}")
+        ap.error(f"unknown regime(s) {unknown}; choose from {regimes}")
     import torch
     if not torch.cuda.is_available():
         print("b1_phase_split: no CUDA device", file=sys.stderr)
