@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--only dist,vlm,train,dryrun,b2_wide,examples,b2_narrow,b1_chunk,
-                b1_decode]
+                b1_decode,b1_long]
 
 Run from the root of a checkout. Phases, each printing one JSON line:
 
@@ -157,7 +157,14 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              the bf16 run on B1's plain version (share of equal tokens
              reported), and (moe_f32) one f32 layer through the fused
              engine on B1 and on its plain version: equal tokens but at
-             near ties of the logits or the router.
+             near ties of the logits or the router. Then (moe_long) kimi's
+             bf16 model through the engine at its default cache (no
+             ``cache_len``: max_seq, 4,096 tokens, 256-block tables):
+             every C 1 launch on B1's long-table layout, nothing detected,
+             the faulted twin emitting the clean tokens, step time and a
+             profiled decode window beside the 1,024-token run's, and the
+             run's largest decode launch held to the plain version and
+             timed for the kernels line.
 21. ssm — rwkv6-7b and hymba-1.5b at full width, 8 of their 32 layers,
              ``greedy_generate`` on B 8 x 512-token prompts, 32 new tokens:
              bf16 tokens/s and the device time of the prefill and of a
@@ -260,6 +267,19 @@ b1_decode — only under ``--only b1_decode``: kernel B1's decode path
              the bound, SDPA in a CUDA graph; and hashes of the clean and
              an EXP-faulted output, to hold two checkouts to each other
              (parent, change, change, parent).
+b1_long  — only under ``--only b1_long``: kernel B1's decode step over
+             tables wider than the decode layout holds (``B1_LONG``:
+             kimi's and arctic's heads at 256-block tables with 2,048-4,096
+             tokens, bf16 and f32; phase 20's lengths in a 256-block
+             table; a 32,768-token context in 2,048 blocks) on the
+             long-table layout (a score, an EXP and a state pass over a
+             workspace): the layout, its tiling, registers and spills;
+             against the plain version clean, under each compute-site SEU
+             and a resident flip (32k: clean and an EXP SEU); device time
+             a launch and a pass, the bound and beside it the workspace's
+             traffic, SDPA in a CUDA graph (padded and expanded, and a
+             call a request with ``enable_gqa``); hashes to hold two
+             checkouts to each other (parent, change, change, parent).
 b2_narrow — only under ``--only b2_narrow``: B2's narrow-path regimes of
              earlier phases and its two cross-attention decode regimes
              (t5, the VLM) timed and hashed with each one's layout (bf16
@@ -392,14 +412,18 @@ def ptxas_summary(log):
     ``..._kernel_fold``; and the decode layout's three passes, {"bf16" |
     "f32"} + " decode score" | " decode exp" | " decode state"; B1's
     decode layout, ``efta_paged_kernel_decode``: {"bf16" | "f32"} +
-    " decode")."""
+    " decode"; B1's long-table layout's three passes, {"bf16" | "f32"} +
+    " long score" | " long exp" | " long state")."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             dt = "bf16" if "bfloat16" in ln else "f32"
             dec = next((k for k in ("score", "exp", "state")
                         if f"kernel_d{k}" in ln), None)
+            lng = next((k for k in ("score", "exp", "state")
+                        if f"kernel_l{k}" in ln), None)
             name = ("bf16 tile" if "kernel_tile" in ln else
+                    f"{dt} long {lng}" if lng else
                     "bf16 fold" if "kernel_fold" in ln else
                     f"{dt} decode {dec}" if dec else
                     f"{dt} decode" if "kernel_decode" in ln else
@@ -440,9 +464,10 @@ def top_exponent_bit(t) -> int:
 
 
 def make_case(torch, cks, *, dtype, B, H, Hkv, D, C, seed, bs=16, mb=64,
-              max_kv=1024, decode_rows=False, full_ctx=False):
+              max_kv=1024, decode_rows=False, full_ctx=False, min_kv=None):
     g = torch.Generator().manual_seed(seed)
-    kv_lens = torch.randint(max(C, 1), max_kv + 1, (B,), generator=g)
+    kv_lens = torch.randint(max(C, 1) if min_kv is None else min_kv,
+                            max_kv + 1, (B,), generator=g)
     if full_ctx:
         kv_lens[:2] = mb * bs       # the whole table: 64 blocks of 16
     q_lens = torch.full((B,), C, dtype=torch.long)
@@ -720,15 +745,17 @@ def check_decode_launches(by, what):
           f"layout")
 
 
-def check_b1_decode_launches(by, what, need=True):
+def check_b1_decode_launches(by, what, need=True, layouts=("decode",)):
     """Every C 1 launch of B1 in ``by`` (:func:`b1_by_layout`; the serve
-    engines verify with the unified output check) took the decode layout,
-    and (``need``) there was one."""
+    engines verify with the unified output check) took one of ``layouts``
+    (the decode layout; where a run's tables may be wide, the long-table
+    layout too), and (``need``) there was one."""
     other = {k: n for k, n in by.items()
-             if k.endswith(" C1") and not k.startswith("decode ")}
-    check(not other and (by.get("decode C1", 0) > 0 or not need),
-          f"{what}: B1's C 1 launches {by} did not all take the decode "
-          f"layout")
+             if k.endswith(" C1") and k.split(" ")[0] not in layouts}
+    check(not other and (sum(by.get(f"{lay} C1", 0) for lay in layouts) > 0
+                         or not need),
+          f"{what}: B1's C 1 launches {by} did not all take the "
+          f"{' or '.join(layouts)} layout")
 
 
 def serve_run(torch, np, model, params, prompts, *, n_new, faulted, seed):
@@ -988,32 +1015,52 @@ def time_ratio(a, b):
     return None if a is None or b is None else a / b
 
 
-def launch_work(torch, cap):
-    """Bytes the launch must move (each input read once, each output written
-    once) and the operations it does, counted for these inputs: only the KV
-    blocks the ragged lengths make it stream."""
+def streamed_blocks(cap):
+    """The KV blocks a launch streams for these ragged lengths (summed over
+    requests, a block a KV head) and those blocks times their query rows."""
     q, k_pool = cap["q"], cap["k"]
-    k_checks, v_checks, bt, kv_lens, q_lens = cap["args"][1:6]
-    B, H, C, D = q.shape
-    _, hkv, bs, _ = k_pool.shape
-    cs = k_checks.c1.shape[-2]
+    bt, kv_lens, q_lens = cap["args"][3:6]
+    H, bs = q.shape[1], k_pool.shape[2]
+    hkv = k_pool.shape[1]
     win = cap["kw"].get("window")
     win = 1 << 30 if win is None else int(win)
-    elt = k_pool.element_size()
     kvl, ql = kv_lens.tolist(), q_lens.tolist()
     blocks = rows_blocks = 0
-    for b in range(B):
+    for b in range(q.shape[0]):
         base = kvl[b] - ql[b]
         n = sum(1 for j in range(bt.shape[1])
                 if j * bs < kvl[b] and base - (j * bs + bs - 1) < win)
         blocks += n
         rows_blocks += n * (H // hkv) * ql[b]
+    return blocks, rows_blocks
+
+
+def launch_work(torch, cap):
+    """Bytes the launch must move (each input read once, each output written
+    once) and the operations it does, counted for these inputs: only the KV
+    blocks the ragged lengths make it stream. A workspace a layout keeps
+    between its passes is not counted: the function needs none."""
+    q, k_pool = cap["q"], cap["k"]
+    k_checks, bt = cap["args"][1], cap["args"][3]
+    B, H, C, D = q.shape
+    _, hkv, bs, _ = k_pool.shape
+    cs = k_checks.c1.shape[-2]
+    elt = k_pool.element_size()
+    blocks, rows_blocks = streamed_blocks(cap)
     nbytes = (blocks * hkv * (2 * bs * D + 4 * cs * D) * elt   # K V planes
               + 2 * q.numel() * elt                             # q in, out
               + bt.numel() * 4 + 2 * B * 4 + B * 6 * 4)
     # GEMM I + GEMM II over the valid rows (2 flops per multiply-add)
     flops = hkv * rows_blocks * 4 * bs * D
     return nbytes, flops
+
+
+def workspace_bytes(cap, floats):
+    """The traffic of a workspace of ``floats`` f32 a (request, KV head,
+    streamed block), each written once and read once (B1's long-table
+    layout: ``PagedTiling.fold_floats``): the layout's own cost beyond
+    :func:`launch_work`'s bound, reported beside it."""
+    return 2 * streamed_blocks(cap)[0] * cap["k"].shape[1] * floats * 4
 
 
 def library_call(torch, cap):
@@ -1039,12 +1086,39 @@ def library_call(torch, cap):
     return lambda: F.scaled_dot_product_attention(qc, k, v, attn_mask=mask)
 
 
-def b1_numbers(torch, cap, key, slack=None):
+def library_call_gqa(torch, cap):
+    """SDPA on each request's own K/V (set-up, not timed): a C 1 step's
+    blocks gathered to its ``kv_len`` and no further, the KV heads not
+    repeated (``enable_gqa``), no mask (one row sees every key before it),
+    so SDPA may take its flash kernel; one call a request."""
+    import torch.nn.functional as F
+    q, k_pool = cap["q"], cap["k"]
+    v_pool, _, _, bt, kv_lens = cap["args"][:5]
+    bs, D = k_pool.shape[2], k_pool.shape[3]
+    hkv = k_pool.shape[1]
+    calls = []
+    for b, n in enumerate(kv_lens.tolist()):
+        idx = bt[b, :-(-n // bs)].long()
+        k = (k_pool[idx].permute(1, 0, 2, 3).reshape(1, hkv, -1, D)
+             [:, :, :n].contiguous())
+        v = (v_pool[idx].permute(1, 0, 2, 3).reshape(1, hkv, -1, D)
+             [:, :, :n].contiguous())
+        calls.append((q[b:b + 1].contiguous(), k, v))
+
+    def run():
+        for qb, k, v in calls:
+            F.scaled_dot_product_attention(qb, k, v, enable_gqa=True)
+    return run
+
+
+def b1_numbers(torch, cap, key, slack=None, layout="decode", ws_floats=0):
     """B1 on captured (or main-path-shaped) inputs: the kernel against its
     plain version (outputs within ``out_bound``, plus ``slack`` where
-    given), its time per launch (CUDA events and the profiler's device
-    time), its bound, the plain version's time and SDPA's on a contiguous
-    copy."""
+    given; a C 1 launch on ``layout``), its time per launch (CUDA events
+    and the profiler's device time), its bound, beside it a workspace of
+    ``ws_floats`` a (request, KV head, running block) written and read
+    once (``ws_bytes``, ``ws_ms``: the layout's cost, not the function's),
+    the plain version's time and SDPA's on a contiguous copy."""
     from repro_torch.kernels.efta_paged import (efta_paged_attention,
                                                 efta_paged_attention_torch)
 
@@ -1055,8 +1129,8 @@ def b1_numbers(torch, cap, key, slack=None):
     ref = run(efta_paged_attention_torch)
     torch.cuda.synchronize()
     if cap["q"].shape[2] == 1 and cap["kw"]["cfg"].unified:
-        check(launched == ["decode"], f"{key}: a C 1 launch on {launched}, "
-              f"not the decode layout")
+        check(launched == [layout], f"{key}: a C 1 launch on {launched}, "
+              f"not the {layout} layout")
     err = float((got.out.float() - ref.out.float()).abs().max())
     check(torch.equal(got.detected, ref.detected),
           f"{key}: kernel and plain counts differ on main-path inputs")
@@ -1074,6 +1148,7 @@ def b1_numbers(torch, cap, key, slack=None):
                        name="efta_paged_kernel")
     lib_dev_ms = device_ms(torch, lib, 20)
     nbytes, flops = launch_work(torch, cap)
+    ws_bytes = workspace_bytes(cap, ws_floats)
     peak = PEAK_FLOPS[str(cap["q"].dtype)]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return {"shape": list(cap["q"].shape), "q_lens_sum": cap["load"],
@@ -1082,7 +1157,9 @@ def b1_numbers(torch, cap, key, slack=None):
             "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "max_abs_err": err}
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "ws_bytes": ws_bytes,
+            "ws_ms": ws_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def phase_numbers(torch, serve, max_err_phase3):
@@ -1947,15 +2024,16 @@ def run_line(run):
 
 def check_b1(run, L, what):
     """B1 launched once per layer of every forward, at widths 64 and 1,
-    every launch at width 1 on the decode layout (a speculative run may
-    have none)."""
+    every launch at width 1 on the decode or the long-table layout (a
+    speculative run may have none)."""
     eng = run["eng"]
     check(run["launches"] > 0 and run["launches"] == L * eng.stats.forwards,
           f"{what}: {run['launches']} B1 launches for {eng.stats.forwards} "
           f"forward passes")
     check(eng.chunk_widths <= {1, 64},
           f"{what}: chunk widths {sorted(eng.chunk_widths)}")
-    check_b1_decode_launches(run["b1_by_layout"], what, need=False)
+    check_b1_decode_launches(run["b1_by_layout"], what, need=False,
+                             layouts=("decode", "long"))
 
 
 def phase_spec_serve(torch, np, seed):
@@ -2875,13 +2953,35 @@ B1_DECODE = {"gpt2_decode": (12, 12, 64, 1991, "bfloat16"),
              "gpt2_decode_f32": (12, 12, 64, 1991, "float32"),
              "kimi_decode_f32": (64, 8, 112, 1901, "float32"),
              "arctic_decode_f32": (56, 8, 128, 1911, "float32")}
+# phase b1_long's regimes, the decode step (C 1) over tables wider than the
+# decode layout holds, which B1's long-table layout takes: (heads, KV heads,
+# head_dim, seed, dtype, table blocks, least and most kv_len) at B 8.
+# kimi_long_4k: the serve CLI's default cache (max_seq, 4,096 tokens) at
+# kimi's heads; arctic_long_4k: arctic's published context; kimi_wide_short:
+# phase 20's lengths in the default cache's table; kimi_long_32k: a
+# 32,768-token cache
+B1_LONG = {"kimi_long_4k": (64, 8, 112, 1921, "bfloat16", 256, 2048, 4096),
+           "arctic_long_4k": (56, 8, 128, 1931, "bfloat16", 256, 2048, 4096),
+           "kimi_wide_short": (64, 8, 112, 1941, "bfloat16", 256, 64, 576),
+           "kimi_long_32k": (64, 8, 112, 1951, "bfloat16", 2048, 16384,
+                             32768),
+           "kimi_long_4k_f32": (64, 8, 112, 1921, "float32", 256, 2048,
+                                4096),
+           "arctic_long_4k_f32": (56, 8, 128, 1931, "float32", 256, 2048,
+                                  4096)}
 
 
 def b1_chunk_case(torch, name):
-    """The inputs and config of a ``B1_CHUNK``, ``B1_KEPT`` or
-    ``B1_DECODE`` regime."""
+    """The inputs and config of a ``B1_CHUNK``, ``B1_KEPT``, ``B1_DECODE``
+    or ``B1_LONG`` regime."""
     from repro_torch.core import checksum as cks
     from repro_torch.core.efta import EFTAConfig
+    if name in B1_LONG:
+        H, Hkv, D, seed, dtype, mb, lo, hi = B1_LONG[name]
+        case = make_case(torch, cks, dtype=getattr(torch, dtype), B=8, H=H,
+                         Hkv=Hkv, D=D, C=1, seed=seed, mb=mb, max_kv=hi,
+                         min_kv=lo)
+        return case, EFTAConfig(mode="correct", stride=128, block_kv=512)
     if name in B1_CHUNK:
         H, Hkv, D, seed, rows = B1_CHUNK[name]
         C, dtype, unified = 64, "bfloat16", True
@@ -3151,6 +3251,134 @@ def phase_b1_decode(torch, np, seed):
     return res
 
 
+def phase_b1_long(torch, np, seed):
+    """B1's decode step over wide tables (``B1_LONG``: kimi's and arctic's
+    heads at 256-block tables, bf16 and f32, phase 20's lengths in a
+    256-block table, a 32,768-token context), correct mode, on the layout
+    the rule gives it (the long-table layout; a checkout from before it
+    runs the first layout): the tiling, the kernel's registers and spills;
+    against the plain version clean, and at the 4,096-token regimes under
+    each compute-site SEU at the last block of request 1 and a resident V
+    flip, at 32k under an EXP SEU at the last block (counts and bad planes
+    equal, outputs within ``out_bound``); the profiler's device time a
+    launch (the long-table layout: each pass's too), the launch's time in
+    a CUDA graph (which must capture it), the bound (beside it the traffic
+    of the long-table layout's workspace, written and read once), SDPA in a
+    CUDA graph (padded and expanded as :func:`library_call` makes it, and
+    :func:`library_call_gqa`'s, a call a request at its own length), and
+    :func:`b1_hash`. Run in two checkouts in turns (this file copied into
+    the other's root; parent, change, change, parent), the times stand
+    side by side."""
+    from repro_torch.core.fault import Site, flip_bit_at
+    from repro_torch.kernels.efta_paged import (efta_paged_attention,
+                                                efta_paged_attention_torch)
+    res = {}
+    for name in B1_LONG:
+        case, cfg = b1_chunk_case(torch, name)
+        t = b1_chunk_tiling(case, cfg)
+        layout = t.layout if t else "narrow"
+        got, launched = b1_launched(
+            lambda: call(efta_paged_attention, case, cfg))
+        check(launched in (None, [layout]),
+              f"b1_long {name}: launched on {launched}, not the {layout} "
+              f"layout")
+        ref = call(efta_paged_attention_torch, case, cfg)
+        torch.cuda.synchronize()
+        err = compare(torch, got, ref, f"b1_long {name} clean")
+        check(int(got.detected.sum()) == 0 and not bool(got.bad_blocks.any()),
+              f"b1_long {name}: detections on clean input")
+        del got, ref
+        b, h = 1, 1
+        j = (int(case["kv_lens"][b]) - 1) // 16
+        long_ctx = case["bt"].shape[1] > 256
+        seu = {}
+        for site in ((Site.EXP,) if long_ctx else
+                     (Site.GEMM1, Site.EXP, Site.ROWMAX, Site.ROWSUM,
+                      Site.GEMM2)):
+            desc = [int(site), j, b, h, 0, 3, seu_bit("correct"), 1]
+            got_f = call(efta_paged_attention, case, cfg, fault=desc)
+            ref_f = call(efta_paged_attention_torch, case, cfg, fault=desc)
+            err = max(err, compare(torch, got_f, ref_f,
+                                   f"b1_long {name} {site.name}"))
+            check(int(got_f.detected[b, :5].sum()) >= 1
+                  or site in (Site.GEMM1, Site.GEMM2),
+                  f"b1_long {name} {site.name}: SEU not detected")
+            seu[site.name] = got_f.detected[b].tolist()
+            del got_f, ref_f
+        kv_det = None
+        if not long_ctx:
+            # a V element of magnitude 2 or more in request 2's last block
+            # shrunk by 2^-128 (a K element grown by 2^128 overflows GEMM I
+            # in both versions at some of these inputs)
+            jl = (int(case["kv_lens"][2]) - 1) // 16
+            vf = case["v"].clone()
+            hkv, D = vf.shape[1], vf.shape[3]
+            blk = int(case["bt"][2, jl])
+            tile = vf[blk, 0].float().abs().flatten()
+            flip_bit_at(vf, blk * hkv * 16 * D +
+                        int(torch.nonzero(tile >= 2)[0]),
+                        top_exponent_bit(vf))
+            got_k = call(efta_paged_attention, dict(case, v=vf), cfg)
+            ref_k = call(efta_paged_attention_torch, dict(case, v=vf), cfg)
+            err = max(err, compare(torch, got_k, ref_k,
+                                   f"b1_long {name} resident flip"))
+            check(bool(got_k.bad_blocks[2, jl]) and
+                  int(got_k.bad_blocks.sum()) == 1,
+                  f"b1_long {name}: resident flip not flagged at its block")
+            kv_det = got_k.detected[2].tolist()
+            del vf, got_k, ref_k
+
+        def fn():
+            return call(efta_paged_attention, case, cfg)
+
+        cap = {"q": case["q"], "k": case["k"],
+               "args": [case["v"], case["kc"], case["vc"], case["bt"],
+                        case["kv_lens"], case["q_lens"]],
+               "kw": {"cfg": cfg, "window": None}}
+        ws_bytes = workspace_bytes(
+            cap, t.fold_floats if layout == "long" else 0)
+        nbytes, flops = launch_work(torch, cap)
+        peak = PEAK_FLOPS[str(case["q"].dtype)]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        lib = library_call(torch, cap)
+        lib_gqa = library_call_gqa(torch, cap)
+        dt = "bf16" if case["q"].dtype == torch.bfloat16 else "f32"
+        ptx = PTXAS.get("efta_paged", {})
+        res[name] = dict(
+            layout=layout, launched=launched,
+            tiling=t._asdict() if t else None,
+            blocks=int(sum(-(-int(n) // 16) for n in case["kv_lens"])),
+            ptxas=({k: ptx.get(f"{dt} long {k}")
+                    for k in ("score", "exp", "state")}
+                   if layout == "long" else ptx.get(dt)),
+            device_ms=device_ms(torch, fn, 20, name="efta_paged_kernel"),
+            passes_ms=({k: device_ms(torch, fn, 20,
+                                     name=f"efta_paged_kernel_l{k}")
+                        for k in ("score", "exp", "state")}
+                       if layout == "long" else None),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, ws_bytes=ws_bytes,
+            ws_ms=ws_bytes / HBM_BYTES_PER_S * 1e3,
+            graph_ms=graph_ms(torch, fn, 20),
+            library_device_ms=graph_ms(torch, lib, 20),
+            library_gqa_ms=graph_ms(torch, lib_gqa, 20), max_abs_err=err,
+            seu=seu, kv_flip_det=kv_det, **b1_hash(torch, case, cfg))
+        res[name]["sdpa_ratio"] = time_ratio(res[name]["device_ms"],
+                                             res[name]["library_device_ms"])
+        res[name]["sdpa_gqa_ratio"] = time_ratio(res[name]["device_ms"],
+                                                 res[name]["library_gqa_ms"])
+        # the launch waits for the host nowhere and allocates its workspace
+        # on the caller's stream: a CUDA graph captures it
+        check(layout != "long" or res[name]["graph_ms"] is not None,
+              f"b1_long {name}: the launch cannot be captured in a CUDA "
+              f"graph")
+        del case, lib, lib_gqa, cap
+        free(torch)
+    emit({"phase": "b1_long", "ok": True, "regimes": res})
+    return res
+
+
 def exp_seu_on_decode_row(state):
     """faults_at for ``drive``: an EXP SEU (bit 27, KV block 0, query head
     1, row 0) on a decoding slot's row, every step until one is detected;
@@ -3290,22 +3518,27 @@ def phase_moe(torch, np, seed):
     the device time. kimi also runs the ring engine (``moe_ring``, first:
     its timings come before any profile) and, in f32 at one layer, the
     fused run against the same run on B1's plain version: equal tokens
-    except at near ties of the logits or the router."""
-    out, b1_runs, b2_entries = {}, {}, {}
+    except at near ties of the logits or the router. kimi's bf16 model also
+    runs the engine at its default cache (``moe_long``), which puts its
+    decode launches on B1's long-table layout."""
+    out, b1_runs, b2_entries, long_entries = {}, {}, {}, {}
     for arch in MOE_ARCHS:
         free(torch)
-        out[arch], b1_runs[arch], ring_b2 = moe_paged(torch, np, arch, seed)
+        out[arch], b1_runs[arch], ring_b2, lng = moe_paged(torch, np, arch,
+                                                          seed)
         b2_entries.update(ring_b2)
+        long_entries.update(lng)
     free(torch)
     moe_f32(torch, np, MOE_ARCHS[0], seed)
     free(torch)
-    return out, b1_runs, b2_entries
+    return out, b1_runs, b2_entries, long_entries
 
 
 def moe_paged(torch, np, arch, seed):
     """Phase 20's runs of one arch (see ``phase_moe``); its models are
     freed when it returns. Returns (the phase line's numbers, B1 launches
-    of the clean run, kimi's ring B2 entries for the kernels line)."""
+    of the clean run, kimi's ring B2 entries and its default-cache B1 entry
+    for the kernels line)."""
     torch.cuda.reset_peak_memory_stats()
     model = moe_model(arch, "bfloat16", MOE_LAYERS)
     params = model_params(torch, model, seed)
@@ -3362,7 +3595,94 @@ def moe_paged(torch, np, arch, seed):
                              "forwards": twin["eng"].stats.forwards},
                peak_bytes=torch.cuda.max_memory_allocated())
     emit({"phase": "moe_paged", "ok": True, "arch": arch, **res})
-    return res, clean["launches"], b2_entries
+    long_entries = {}
+    if arch == MOE_ARCHS[0]:
+        long_entries = moe_long(torch, np, model, params, prompts, res)
+    return res, clean["launches"], b2_entries, long_entries
+
+
+def moe_long(torch, np, model, params, prompts, short):
+    """kimi through the fused engine at its default cache: no
+    ``cache_len``, so the CLI's default, ``max_seq`` (4,096 tokens: 256-block
+    tables), phase 20's traffic. Every C 1 launch must take B1's long-table
+    layout; the clean run detects nothing; the faulted twin (phase 20's
+    EXP SEU on a decode row, then a resident flip) detects, repairs and
+    emits the clean run's tokens; step time and B1's device time in a
+    profiled decode window, beside phase 20's 1,024-token run (``short``).
+    The run's largest decode launch is held to the plain version and timed
+    (``b1_numbers``) for the kernels line."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels import efta_paged as b1_mod
+    L = model.cfg.num_layers
+    arch = model.cfg.name
+
+    def engine():
+        return fused_engine(model, params)
+
+    rec = Recorder(torch, model, attn_mod)
+    try:
+        clean = drive(torch, np, engine(), prompts, 32, step_times=True)
+    finally:
+        rec.restore()
+    eng = clean["eng"]
+    check(eng.cache_len == model.cfg.max_seq == 4096,
+          f"{arch} default cache: cache_len {eng.cache_len}, not 4,096")
+    cap = rec.captured["decode"]
+    mb = int(cap["args"][3].shape[1])
+    check(mb == 256, f"{arch} default cache: {mb}-block tables, not 256")
+    check_b1(clean, L, f"{arch} default cache clean")
+    check_b1_decode_launches(clean["b1_by_layout"],
+                             f"{arch} default cache clean", layouts=("long",))
+    check(eng.telemetry.summary()["detected"] == 0 and
+          eng.paged_stats.kv_detected_blocks == 0,
+          f"{arch} default cache: clean detections")
+    st_exp, st_flip = {}, {}
+    twin = drive(torch, np, engine(), prompts, 32,
+                 faults_at=exp_seu_on_decode_row(st_exp),
+                 before_step=flip_lowest_slot(st_flip, 9, L - 1))
+    check_b1(twin, L, f"{arch} default cache faulted twin")
+    check_b1_decode_launches(twin["b1_by_layout"],
+                             f"{arch} default cache faulted twin",
+                             layouts=("long",))
+    ps = twin["eng"].paged_stats
+    check(st_exp.get("hit") is not None,
+          f"{arch} default cache: EXP SEU not detected")
+    check(ps.kv_detected_blocks >= 1 and ps.kv_repaired_blocks >= 1,
+          f"{arch} default cache: resident flip not detected and repaired: "
+          f"{ps}")
+    for rid, (a, b) in enumerate(zip(clean["outs"], twin["outs"])):
+        check(np.array_equal(a, b), f"{arch} default cache faulted twin: "
+              f"request {rid}'s tokens differ from the clean run's")
+    n = clean["steps"]
+    windows = drive(torch, np, engine(), prompts, 32, split=True,
+                    profile_steps={"decode": (n - 8, n - 4)})["busy"]
+    t = b1_mod.tiling(b1_mod.DTYPES[cap["q"].dtype],
+                      cap["q"].shape[1] // cap["k"].shape[1], cap["q"].shape[3],
+                      16, cap["args"][1].c1.shape[-2],
+                      cap["kw"]["cfg"].kv_stride(16),
+                      cap["kw"]["cfg"].out_stride(cap["q"].shape[3]), mb,
+                      cap["kw"]["cfg"].unified, chunk=1)
+    key = f"{arch} decode, default cache (256-block tables)"
+    numbers = b1_numbers(torch, cap, key, layout="long",
+                         ws_floats=t.fold_floats)
+    line = moe_run_line(clean)
+    emit({"phase": "moe_long", "ok": True, "arch": arch, "layers": L,
+          "cache_len": eng.cache_len, "table_blocks": mb,
+          "bf16": line, "windows": windows,
+          "faulted_twin": {"seu_step": st_exp["hit"],
+                           "flip_slot": st_flip.get("slot"),
+                           "detected": twin["eng"].telemetry.summary()[
+                               "detected"],
+                           "stats": dataclasses.asdict(ps)},
+          "b1": numbers,
+          "beside_cache_1024": {
+              "step_ms_median": short["bf16"]["step_ms_median"],
+              "b1_by_layout": short["bf16"]["b1_by_layout"],
+              "decode_window": short["windows"].get("decode")}})
+    return {key: dict(numbers, launches=clean["launches"],
+                      launches_by_layout=clean["b1_by_layout"],
+                      launches_per=f"bf16 paged run of {arch} at its "
+                                   f"default cache, {L} layers")}
 
 
 def plain_b1_drive(torch, np, eng, prompts, n_new, **kw):
@@ -5231,8 +5551,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run after device and "
                          "build (dist, vlm, train, dryrun, b2_wide, "
-                         "examples, b1_chunk; b2_narrow and b1_decode run "
-                         "only so), "
+                         "examples, b1_chunk; b2_narrow, b1_decode and "
+                         "b1_long run only so), "
                          "for bring-up; prints no result line")
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase dist
@@ -5254,7 +5574,7 @@ def main(argv=None) -> int:
                 "vlm": phase_vlm, "train": phase_train,
                 "dryrun": phase_dryrun, "b2_wide": phase_b2_wide,
                 "b2_narrow": phase_b2_narrow, "b1_chunk": phase_b1_chunk,
-                "b1_decode": phase_b1_decode,
+                "b1_decode": phase_b1_decode, "b1_long": phase_b1_long,
                 "examples": lambda torch, np, seed: phase_examples(torch)}
         for name in args.only.split(","):
             only[name](torch, np, args.seed)
@@ -5284,7 +5604,7 @@ def main(argv=None) -> int:
     # profiled windows; every per-kernel timing comes before the whole-run
     # profiles: after one, the profiler drops kernel records from later
     # windows (seen on the card)
-    _, b1_runs, b2_ring = phase_moe(torch, np, args.seed)
+    _, b1_runs, b2_ring, b1_long = phase_moe(torch, np, args.seed)
     entry_b2["regimes"].update(b2_ring)
     for name, numbers in b1_regimes.items():
         arch = name.split(" ")[0]
@@ -5292,6 +5612,7 @@ def main(argv=None) -> int:
                        launches_per=f"bf16 paged run of {arch}, "
                                     f"{MOE_LAYERS} layers")
     entry["regimes"] = b1_regimes
+    entry["long"] = b1_long
     phase_train(torch, np, args.seed)
     phase_dryrun(torch, np, args.seed)
     phase_examples(torch)

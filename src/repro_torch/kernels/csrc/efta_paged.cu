@@ -126,8 +126,23 @@
 //     partials stored into the shared memory of the CTA that owns the row;
 //     exchange 2: each owner folds its rows' running state in block order
 //     and finalizes them. One launch; no workspace; two cluster barriers.
-// Every tiling the first layout takes and the tile and decode layouts do not
-// keeps the first kernel, whose code is unchanged.
+// The long-table layout (efta_paged_kernel_lscore, _lexp and _lstate,
+// efta_paged_long.cuh) takes the decode layout's shapes where a CTA's share
+// of the table does not fit the cluster (wide tables: the serve engine's
+// default cache of 4,096 tokens at the moe heads, long contexts). There the
+// first layout walked every running block in one CTA a (request, KV head).
+//   * The decode layout's phases as three launches over a global workspace
+//     of a slot a (unit, running block): a score pass (site 6 on K, GEMM I,
+//     the fold check, block and group maxima), an EXP pass (the running max
+//     entering each group of blocks from the earlier groups' maxima, the
+//     block's running max, site 6 on V, EXP and its checks, the row terms,
+//     P V and the O-checksum products), and a state pass a (unit, row) that
+//     folds the running state in block order and finalizes.
+//   * Shared memory is fixed (G blocks a CTA at a time), the first two
+//     passes' CTAs walk groups of running blocks with a stride, and the
+//     wrapper allocates the workspace a call, as the tile layout's.
+// Every tiling the first layout takes and the tile, decode and long-table
+// layouts do not keeps the first kernel, whose code is unchanged.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after the launch.
@@ -138,11 +153,18 @@
 // Phase clocks: efta_common.cuh (-DEFTA_PHASE_CLOCKS); tools/b1_phase_split.py
 // names each layout's marks. -DEFTA_PAGED_FIRST_LAYOUT, which only that
 // tool's `--layout narrow` build sets, keeps every shape on the first
-// layout, as the kernel ran before the tile and decode layouts.
+// layout, as the kernel ran before the tile and decode layouts;
+// -DEFTA_PAGED_NO_DECODE_LAYOUT, which only its `--layout long` build
+// sets, gives the decode layout's shapes to the long-table layout.
 #ifdef EFTA_PAGED_FIRST_LAYOUT
 constexpr bool FIRST_LAYOUT_ONLY = true;
 #else
 constexpr bool FIRST_LAYOUT_ONLY = false;
+#endif
+#ifdef EFTA_PAGED_NO_DECODE_LAYOUT
+constexpr bool NO_DECODE_LAYOUT = true;
+#else
+constexpr bool NO_DECODE_LAYOUT = false;
 #endif
 
 namespace {
@@ -1002,6 +1024,7 @@ __global__ void __launch_bounds__(MAX_THREADS) efta_paged_kernel(const Params P)
 
 #include "efta_paged_tile.cuh"
 #include "efta_paged_decode.cuh"
+#include "efta_paged_long.cuh"
 
 // the tile layout's rule: bf16, unified output verification, grp x C >= 64
 // rows, 16-key blocks at ABFT stride 4, D a multiple of 16 up to 128, s_out
@@ -1029,10 +1052,10 @@ bool choose_ptile(int R, int D, int bs, int cs, int skv, int sout, int esz,
 // SM, else the most that fit one
 bool choose_pdecode(int R, int C, int D, int bs, int cs, int skv, int sout,
                     int esz, int unified, int mb, int* KG) {
-  if (FIRST_LAYOUT_ONLY || C != 1 || !unified || R <= 0 || mb <= 0 ||
-      bs != PD_BS || skv != PD_SKV || D <= 0 || D % 16 || D > 256 ||
-      sout <= 0 || sout > 32 || D % sout || cs <= 0 || bs % cs ||
-      (cs * D * esz) % 16)
+  if (FIRST_LAYOUT_ONLY || NO_DECODE_LAYOUT || C != 1 || !unified ||
+      R <= 0 || mb <= 0 || bs != PD_BS || skv != PD_SKV || D <= 0 ||
+      D % 16 || D > 256 || sout <= 0 || sout > 32 || D % sout || cs <= 0 ||
+      bs % cs || (cs * D * esz) % 16)
     return false;
   const int span = (mb + PD_CTAS - 1) / PD_CTAS;
   const size_t caps[2] = {PD_SMEM_PAIR, SMEM_LIMIT};
@@ -1046,6 +1069,66 @@ bool choose_pdecode(int R, int C, int D, int bs, int cs, int skv, int sout,
     }
   }
   return false;
+}
+
+// the long-table layout's rule: the decode layout's shapes (one chunk row,
+// unified output verification, 16-key blocks at ABFT stride 4, D a multiple
+// of 16 up to 256, s_out up to 32) at any table width. Blocks a group G:
+// the most (at most PL_G) whose score and EXP passes leave room for three
+// CTAs an SM, else two, else one; CTAs a unit in those passes GY: one a
+// group, at most PL_GY
+bool choose_plong(int R, int C, int D, int bs, int cs, int skv, int sout,
+                  int esz, int unified, int mb, int* G, int* GY) {
+  if (FIRST_LAYOUT_ONLY || C != 1 || !unified || R <= 0 || mb <= 0 ||
+      bs != PD_BS || skv != PD_SKV || D <= 0 || D % 16 || D > 256 ||
+      sout <= 0 || sout > 32 || D % sout || cs <= 0 || bs % cs ||
+      (cs * D * esz) % 16)
+    return false;
+  const size_t caps[3] = {PL_SMEM_TRIPLE, PD_SMEM_PAIR, SMEM_LIMIT};
+  for (int c = 0; c < 3; ++c) {
+    for (int g = PL_G; g >= 1; --g) {
+      const PLLayout L = make_plong_layout(g, R, D, cs, sout, esz);
+      if (L.total <= caps[c] && L.e_total <= caps[c]) {
+        const int groups = (mb + g - 1) / g;
+        *G = g;
+        *GY = groups < PL_GY ? groups : PL_GY;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// the long-table layout: the score, EXP and state passes, in turn
+template <typename T>
+cudaError_t launch_plong(const PLParams& c, cudaStream_t stream) {
+  const size_t a = c.L.total, e = c.L.e_total,
+               st = plong_state_smem(c.P.D, c.P.s_out);
+  if (a > SMEM_LIMIT || e > SMEM_LIMIT || st > SMEM_LIMIT)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      efta_paged_kernel_lscore<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(efta_paged_kernel_lexp<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)e);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(efta_paged_kernel_lstate<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)st);
+  if (err != cudaSuccess) return err;
+  const unsigned units = (unsigned)(c.P.B * c.P.Hkv * c.n_rg);
+  const dim3 grid(units, c.GY);
+  efta_paged_kernel_lscore<T><<<grid, PL_THREADS, a, stream>>>(c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  efta_paged_kernel_lexp<T><<<grid, PL_THREADS, e, stream>>>(c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  efta_paged_kernel_lstate<T><<<dim3(units, PD_ROWS), PL_ST_THREADS, st,
+                                stream>>>(c);
+  return cudaGetLastError();
 }
 
 // the decode layout: one launch, a cluster of PD_CTAS CTAs a unit
@@ -1110,17 +1193,21 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Row tiles per (request, kv head) for these shapes (the decode layout:
-// CTAs, 8 a unit of 16 rows), or 0 when the kernel takes no tiling of
-// them. dtype as below; unified and the chunk width C as the launch's.
-// With `tiling` (7 ints, or NULL) also the choice:
+// CTAs, 8 a unit of 16 rows; the long-table layout: the count rows of its
+// CTAs, GY + 16 a unit), or 0 when the kernel takes no tiling of them.
+// dtype as below; unified and the chunk width C as the launch's.
+// With `tiling` (8 ints, or NULL) also the choice:
 // {row groups W, blocks a step G, ring stages ST, shared-memory bytes, the
-// fold pass's floats a (request, KV head, block) (0 but on the tile
-// layout), the tile layout, CTAs a cluster (0 but on the decode layout)}.
+// scratch's floats a (request, KV head, block) (0 but on the tile and the
+// long-table layouts), the tile layout, CTAs a cluster (0 but on the
+// decode layout), the long-table layout}. On the long-table layout G is
+// the blocks of a group, ST the CTAs a unit of its score and EXP passes
+// (GY) and smem the larger pass's bytes.
 int efta_paged_tiling(int dtype, int R, int D, int bs, int cs, int s_kv,
                       int s_out, int mb, int unified, int chunk,
                       int* tiling) {
   const int esz = dtype == 0 ? 4 : 2;
-  int W = 0, G = 0, ST = 0, smem = 0, floats = 0, n = 0, cl = 0;
+  int W = 0, G = 0, ST = 0, smem = 0, floats = 0, n = 0, cl = 0, lg = 0;
   const bool pt = choose_ptile(R, D, bs, cs, s_kv, s_out, esz, unified, &ST);
   if (choose_pdecode(R, chunk, D, bs, cs, s_kv, s_out, esz, unified, mb,
                      &G)) {
@@ -1129,6 +1216,15 @@ int efta_paged_tiling(int dtype, int R, int D, int bs, int cs, int s_kv,
     smem = (int)make_pdecode_layout(G, R, D, cs, s_out, esz, mb).total;
     cl = PD_CTAS;
     n = (R + PD_ROWS - 1) / PD_ROWS * PD_CTAS;
+  } else if (choose_plong(R, chunk, D, bs, cs, s_kv, s_out, esz, unified, mb,
+                          &G, &ST)) {
+    const PLLayout L = make_plong_layout(G, R, D, cs, s_out, esz);
+    const int n_rg = (R + PD_ROWS - 1) / PD_ROWS;
+    W = PD_ROWS / 16;
+    smem = (int)(L.total > L.e_total ? L.total : L.e_total);
+    floats = n_rg * make_plong_slot(R, D, s_out).floats;
+    lg = 1;
+    n = n_rg * (ST + PD_ROWS);
   } else if (pt) {
     W = PT_ROWS / 16;
     G = PT_G;
@@ -1143,8 +1239,9 @@ int efta_paged_tiling(int dtype, int R, int D, int bs, int cs, int s_kv,
     n = (R + 16 * W - 1) / (16 * W);
   }
   if (tiling) {
-    const int v[7] = {W, G, ST, smem, floats, pt && !cl ? 1 : 0, cl};
-    for (int i = 0; i < 7; ++i) tiling[i] = v[i];
+    const int v[8] = {W, G, ST, smem, floats, pt && !cl && !lg ? 1 : 0, cl,
+                      lg};
+    for (int i = 0; i < 8; ++i) tiling[i] = v[i];
   }
   return n;
 }
@@ -1163,9 +1260,10 @@ const char* efta_paged_error_string(int code) {
 // dtype: 0 = float32, 1 = bfloat16 (q, pools, checksum planes and out).
 // Pointers are device pointers; rep is (B, Hkv, tiles, 6) int32 (tiles as
 // efta_paged_tiling returns them; the decode layout's are CTAs). Where the
-// tiling takes the tile layout, ws holds the fold pass's (B, Hkv, mb) slots
-// (efta_paged_tiling gives the floats a slot); else it is unused. The
-// launch goes on `stream`.
+// tiling takes the tile layout, ws holds the fold pass's (B, Hkv, mb) slots,
+// and where it takes the long-table layout, the workspace's (efta_paged_
+// tiling gives the floats a slot); else it is unused. The launches go on
+// `stream`.
 int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
                       const void* kc1, const void* kc2, const void* vc1,
                       const void* vc2, const void* bt, const void* kv_lens,
@@ -1230,6 +1328,23 @@ int efta_paged_launch(int dtype, const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
     return (int)(dtype == 0 ? launch_pdecode<float>(c, s)
                             : launch_pdecode<__nv_bfloat16>(c, s));
+  }
+  int G = 0, GY = 0;
+  if (choose_plong(R, chunk, D, bs, cs, s_kv, s_out, esz, unified, mb, &G,
+                   &GY)) {
+    PLParams c;
+    c.P = p;
+    c.G = G;
+    c.GY = GY;
+    c.n_rg = (R + PD_ROWS - 1) / PD_ROWS;
+    c.P.n_tiles = c.n_rg * (GY + PD_ROWS);
+    c.L = make_plong_layout(G, R, D, cs, s_out, esz);
+    c.S = make_plong_slot(R, D, s_out);
+    c.ws = (float*)ws;
+    if (ws == nullptr || (long long)B * Hkv * c.n_rg > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? launch_plong<float>(c, s)
+                            : launch_plong<__nv_bfloat16>(c, s));
   }
   if (choose_ptile(R, D, bs, cs, s_kv, s_out, esz, unified, &p.ST)) {
     p.n_tiles = (R + PT_ROWS - 1) / PT_ROWS;

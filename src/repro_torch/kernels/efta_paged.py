@@ -475,14 +475,19 @@ _MAX_G = 32
 _PT_ROWS, _PT_G, _PT_BS, _PT_SKV, _PT_NT2 = 64, 4, 16, 4, 4
 _PD_CTAS, _PD_ROWS, _PD_WARPS, _PD_KG, _PD_LDS, _PD_RN = 8, 16, 8, 4, 20, 2
 _PD_SMEM_PAIR = 115712     # shared bytes a CTA for two CTAs an SM
+_PL_G, _PL_GY, _PL_RN = 8, 64, 3
+_PL_SMEM_TRIPLE = 76800    # shared bytes a CTA for three CTAs an SM
 
 
 class PagedTiling(NamedTuple):
     """The kernel's choice for one call's shapes: 16-row groups a thread
     block W, KV blocks a step G, ring stages ST, shared-memory bytes, the
-    fold pass's floats a (request, KV head, block) (0 but on the tile
-    layout), the tile layout, and the CTAs of a cluster (0 but on the decode
-    layout, whose G is the blocks of a phase-A step)."""
+    scratch's floats a (request, KV head, block) (0 but on the tile layout,
+    the fold pass's, and the long-table layout, the workspace's), the tile
+    layout, the CTAs of a cluster (0 but on the decode layout, whose G is
+    the blocks of a phase-A step), and the long-table layout (whose G is
+    the blocks of a group, ST the CTAs a unit of its score and EXP passes
+    and smem the larger pass's bytes)."""
 
     W: int
     G: int
@@ -491,18 +496,28 @@ class PagedTiling(NamedTuple):
     fold_floats: int
     tile: int
     cluster: int = 0
+    long: int = 0
 
     @property
     def layout(self) -> str:
-        """"decode", "tile" or "narrow" (the first layout)."""
-        return ("decode" if self.cluster else "tile" if self.tile
-                else "narrow")
+        """"decode", "long", "tile" or "narrow" (the first layout)."""
+        return ("decode" if self.cluster else "long" if self.long
+                else "tile" if self.tile else "narrow")
 
     @property
     def rows(self) -> int:
-        """Rows of a thread block (the decode layout: of a cluster's unit):
-        a tile of the rows of one (request, KV head)."""
+        """Rows of a thread block (the decode and long-table layouts: of a
+        unit): a tile of the rows of one (request, KV head)."""
         return _PT_ROWS if self.tile else 16 * self.W
+
+    def count_rows(self, R: int) -> int:
+        """Rows of the count tensor a (request, KV head), as
+        ``efta_paged_tiling`` returns them: a row tile's, a decode CTA's, a
+        long-table unit's GY score / EXP CTAs and 16 state CTAs."""
+        units = -(-R // self.rows)
+        if self.long:
+            return units * (self.ST + _PD_ROWS)
+        return units * (self.cluster or 1)
 
 
 def _up16(n: int) -> int:
@@ -571,6 +586,42 @@ def _decode_layout(KG, R, D, cs, sout, esz, mb) -> int:
     return sum(_up16(n) for n in parts)
 
 
+def _long_slot(R, D, sout) -> int:
+    """Floats of the long-table layout's workspace slot of one (unit,
+    running block): ``make_plong_slot`` (alpha and three row terms, the
+    scores, the checksum products, P V, the block and group maxima and the
+    O-checksum products of each row; K's site-6 flag; max|V|)."""
+    ru = min(R, _PD_ROWS)
+    return (ru * (4 + _PT_BS + _PT_SKV + D + 2 + 2 * sout) + 2 + 3) & ~3
+
+
+def _long_layout(G, R, D, cs, sout, esz) -> Tuple[int, int]:
+    """Shared bytes of one CTA of the long-table layout's score pass and of
+    its EXP pass: ``make_plong_layout``."""
+    ldk = D + 8 if esz == 2 else D + 1
+    ru = min(R, _PD_ROWS)
+    tile, planes = _PT_BS * ldk * esz, 2 * cs * D * esz
+    kslot = _up16(tile) + _up16(planes)
+    sslot = _up16(ru * _PD_LDS * 4) + _up16(ru * _PT_SKV * 4)
+    score = sum(_up16(n) for n in (_PD_ROWS * ldk * esz, G * kslot,
+                                   G * sslot, G * ru * 4, _PD_WARPS * 8 * 4))
+    eslot = kslot + sslot + _up16(ru * _PL_RN * 4)
+    exp = sum(_up16(n) for n in (G * eslot, _PD_ROWS * 4,
+                                 _PD_WARPS * 2 * _PT_BS * sout * 4,
+                                 _PD_WARPS * 8 * 4))
+    return score, exp
+
+
+def _decode_shapes(chunk, unified, R, D, bs, cs, s_kv, s_out, esz, mb):
+    """The decode and long-table layouts' shapes: one chunk row,
+    ``unified``, 16-key blocks at ABFT stride 4, D a multiple of 16 up to
+    256, ``s_out`` up to 32, the check stride dividing the block."""
+    return (chunk == 1 and unified and R > 0 and mb > 0 and bs == _PT_BS
+            and s_kv == _PT_SKV and D > 0 and D % 16 == 0 and D <= 256
+            and 0 < s_out <= 32 and D % s_out == 0 and cs > 0
+            and bs % cs == 0 and cs * D * esz % 16 == 0)
+
+
 def tiling(dtype_code: int, R: int, D: int, bs: int, cs: int, s_kv: int,
            s_out: int, mb: int, unified: bool = True, *, chunk: int
            ) -> Optional[PagedTiling]:
@@ -583,22 +634,31 @@ def tiling(dtype_code: int, R: int, D: int, bs: int, cs: int, s_kv: int,
     256, ``s_out`` up to 32, the check stride dividing the block, a CTA's
     share of the table, ceil(mb / 8) blocks, within the SM's shared memory):
     the most blocks a phase-A step, at most 4, that leave room for two CTAs
-    an SM, else the most that fit one. Else the tile layout wherever
-    it holds the shapes (bf16, ``unified``, R >= 64, 16-key blocks at ABFT
-    stride 4, D a multiple of 16 up to 128, ``s_out`` up to 32, the check
-    stride dividing the block): three ring stages before two. Else
+    an SM, else the most that fit one. Else, on those shapes, the
+    long-table layout: the most blocks a group, at most 8, whose score and
+    EXP passes leave room for three CTAs an SM, else two, else one, and a
+    CTA a group in those passes, at most 64 a unit. Else the tile layout
+    wherever it holds the shapes (bf16, ``unified``, R >= 64, 16-key blocks
+    at ABFT stride 4, D a multiple of 16 up to 128, ``s_out`` up to 32, the
+    check stride dividing the block): three ring stages before two. Else
     :func:`_first_tiling`."""
     esz = 4 if dtype_code == 0 else 2
-    if (chunk == 1 and unified and R > 0 and mb > 0 and bs == _PT_BS
-            and s_kv == _PT_SKV and D > 0 and D % 16 == 0 and D <= 256
-            and 0 < s_out <= 32 and D % s_out == 0 and cs > 0
-            and bs % cs == 0 and cs * D * esz % 16 == 0):
+    if _decode_shapes(chunk, unified, R, D, bs, cs, s_kv, s_out, esz, mb):
         for cap in (_PD_SMEM_PAIR, _SMEM_LIMIT):
             for kg in range(min(-(-mb // _PD_CTAS), _PD_KG), 0, -1):
                 smem = _decode_layout(kg, R, D, cs, s_out, esz, mb)
                 if smem <= cap:
                     return PagedTiling(_PD_ROWS // 16, kg, 1, smem, 0, 0,
                                        _PD_CTAS)
+        for cap in (_PL_SMEM_TRIPLE, _PD_SMEM_PAIR, _SMEM_LIMIT):
+            for g in range(_PL_G, 0, -1):
+                smem = max(_long_layout(g, R, D, cs, s_out, esz))
+                if smem <= cap:
+                    units = -(-R // _PD_ROWS)
+                    return PagedTiling(_PD_ROWS // 16, g,
+                                       min(-(-mb // g), _PL_GY), smem,
+                                       units * _long_slot(R, D, s_out), 0,
+                                       0, 1)
     if (esz == 2 and unified and R >= _PT_ROWS and bs == _PT_BS
             and s_kv == _PT_SKV and D % 16 == 0 and D <= 32 * _PT_NT2
             and 0 < s_out <= 32 and D % s_out == 0 and cs > 0
@@ -657,18 +717,20 @@ def kernel_tiling(dtype_code: int, R: int, D: int, bs: int, cs: int,
     """What the built kernel's C entry point ``efta_paged_tiling`` chooses
     for these shapes (None: no tiling); :func:`tiling` mirrors it. Builds
     the kernel on first use."""
-    buf = (ctypes.c_int * 7)()
+    buf = (ctypes.c_int * 8)()
     n = _lib().efta_paged_tiling(dtype_code, R, D, bs, cs, s_kv, s_out, mb,
                                  int(unified), chunk, buf)
     return PagedTiling(*buf) if n > 0 else None
 
 
 def fold_scratch(t: PagedTiling, B: int, hkv: int, mb: int, device):
-    """The tile layout's fold-pass output, one slot of ``t.fold_floats``
-    f32 for each (request, KV head, table block), uninitialised (the pass
-    writes every running block's slot before the tile kernel reads it);
-    None on the first layout."""
-    if not t.tile:
+    """The scratch of the tile layout (its fold pass's output) or of the
+    long-table layout (its workspace), one slot of ``t.fold_floats`` f32
+    for each (request, KV head, table block), uninitialised (a pass writes
+    every running block's slot before a later pass reads it); None on the
+    first and the decode layouts. Allocated a call, on the caller's stream:
+    under CUDA graph capture it comes from the graph's own pool."""
+    if not (t.tile or t.long):
         return None
     return torch.empty((B, hkv, mb, t.fold_floats), dtype=torch.float32,
                        device=device)
@@ -706,7 +768,7 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
     ints = [t.to(device=dev, dtype=torch.int32).contiguous()
             for t in (block_tables, kv_lens, call.q_lens)]
     lib = _lib()
-    buf = (ctypes.c_int * 7)()
+    buf = (ctypes.c_int * 8)()
     n_tiles = lib.efta_paged_tiling(DTYPES[dtype], R, D, bs, cs, call.s_kv,
                                     call.s_out, mb, int(cfg.unified),
                                     call.chunk, buf)
@@ -736,8 +798,8 @@ def _paged_cuda(call: _Call, k_pool, v_pool, k_checks, v_checks,
                            f"failed: CUDA error {rc} ({msg})")
     efta_paged_attention.launches += 1
     efta_paged_attention.launches_by_layout[(t.layout, call.chunk)] += 1
-    # per-row-tile (decode: per-CTA) partial counts, summed here: no
-    # atomics, deterministic
+    # per-row-tile (decode and long-table layouts: per-CTA) partial counts,
+    # summed here: no atomics, deterministic
     return out, rep.sum(dim=(1, 2), dtype=torch.int32), bad.any(dim=1)
 
 

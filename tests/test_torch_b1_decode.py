@@ -10,7 +10,8 @@ memory and the running state folded in block order.
   kimi-k2, arctic and gemma3-1b in bf16 and f32, and keeps the first layout
   for the per-step output check and the tile layout for bf16 C 64.
 * The shapes whose share of the table does not fit one CTA's shared memory
-  are named: they keep the first layout.
+  are named: they take the long-table layout
+  (``tests/test_torch_b1_long.py``).
 * The decode layout's shared bytes follow the C layout's arithmetic.
 * A decode shape whose launch fails raises; neither the first layout nor
   the plain version runs in its place. A launch is counted as
@@ -86,7 +87,8 @@ def test_mirror_refuses_the_decode_layout_off_its_shapes(case):
 
 # (regime, dtype, table blocks) whose 8-CTA cluster cannot hold a CTA's
 # share of the table (V and the partials exchange 2 reads for ceil(mb / 8)
-# blocks) in 227 KB: they keep the first layout
+# blocks) in 227 KB: the decode layout refuses them, and the long-table
+# layout takes them
 REFUSED = [("gemma3", F32, 64), ("gemma3", BF16, 128), ("arctic", F32, 128),
            ("kimi", F32, 256)]
 
@@ -94,7 +96,7 @@ REFUSED = [("gemma3", F32, 64), ("gemma3", BF16, 128), ("arctic", F32, 128),
 @pytest.mark.parametrize("regime,dtype,mb", REFUSED)
 def test_refused_decode_shapes(regime, dtype, mb):
     t = b1.tiling(*_shapes(regime, dtype, mb=mb), chunk=1)
-    assert t is not None and t.layout == "narrow", t
+    assert t is not None and t.layout == "long", t
     assert b1._decode_layout(1, HEADS[regime][0], HEADS[regime][1], 8,
                              CFG.out_stride(HEADS[regime][1]),
                              4 if dtype == F32 else 2, mb) > b1._SMEM_LIMIT

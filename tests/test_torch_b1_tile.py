@@ -9,10 +9,10 @@ allocates.
   rule on the card) takes the tile layout at the chunk path's regimes in
   bf16 (arctic's and kimi's C 64, gpt2's prefill) and keeps the first
   layout for f32, the per-step output check, fewer than 64 rows, other
-  block sizes and strides, D over 128, and a decode shape (C 1) whose table
-  the decode layout's cluster cannot hold (C 1 otherwise takes the decode
-  layout: ``tests/test_torch_b1_decode.py``); shared bytes within the SM's
-  227 KB.
+  block sizes and strides and D over 128; a decode shape (C 1) whose table
+  the decode layout's cluster cannot hold takes the long-table layout (C 1
+  otherwise takes the decode layout: ``tests/test_torch_b1_decode.py``,
+  ``tests/test_torch_b1_long.py``); shared bytes within the SM's 227 KB.
 * The wrapper sizes the fold scratch as the card's kernel reads it.
 * A shape the rule gives the tile layout never falls back: when its launch
   fails, the wrapper raises, and neither the first layout nor the plain
@@ -62,7 +62,8 @@ def test_mirror_keeps_the_first_layout(case):
     shapes = list(_shapes("kimi"))
     if case == "decode":
         # C 1 (grp rows) in f32 over a 256-block table: a CTA's 32 blocks
-        # of V and partials exceed the decode layout's shared memory
+        # of V and partials exceed the decode layout's shared memory, and
+        # the long-table layout takes it
         shapes[0], shapes[1], shapes[7], kw["chunk"] = F32, 8, 256, 1
     elif case == "rows_48":
         shapes[1] = 48
@@ -77,7 +78,10 @@ def test_mirror_keeps_the_first_layout(case):
     elif case == "d_256":
         shapes[2], shapes[6] = 256, CFG.out_stride(256)
     t = b1.tiling(*shapes, **kw)
-    assert t is not None and t.layout == "narrow" and t.fold_floats == 0, t
+    if case == "decode":
+        assert t is not None and t.layout == "long" and t.fold_floats > 0, t
+    else:
+        assert t is not None and t.layout == "narrow" and t.fold_floats == 0, t
     assert t.smem <= b1._SMEM_LIMIT
 
 

@@ -1033,3 +1033,132 @@ def test_paged_kernel_decode_layout(regime, dtype, run):
         assert to_np(got.bad_blocks)[2, j] and to_np(got.bad_blocks).sum() == 1
     elif mode == "correct" and site in ("EXP", "ROWSUM"):
         assert det[2, :5].sum() >= 1, det
+
+
+# --- kernel B1's long-table layout (csrc/efta_paged_long.cuh) ---------------
+
+# (query heads a KV head, head_dim) as the decode layout's cases, two units
+# of rows (grp 20), and for each dtype the narrowest of these tables that
+# the decode layout does not hold
+B1_LONG = {"grp1_d64": (1, 64), "grp4_d256": (4, 256), "grp7_d128": (7, 128),
+           "grp8_d112": (8, 112), "grp20_d64": (20, 64)}
+B1_LONG_RUNS = (["clean", "off", "window"]
+                + [f"{s}_{at}" for s in ("GEMM1", "EXP", "ROWMAX", "ROWSUM",
+                                         "GEMM2")
+                   for at in ("early", "mid", "last")]
+                + [f"detect_{s}" for s in ("GEMM1", "EXP", "ROWMAX",
+                                           "ROWSUM", "GEMM2")]
+                + ["k_flip_first", "v_flip_mid", "k_flip_last"])
+
+
+def _long_table(dtype, grp, hd):
+    from repro_torch.kernels import efta_paged as mod
+    cfg = EFTAConfig(mode="correct", stride=128, block_kv=16)
+    for mb in (64, 128, 256, 2048):
+        t = mod.tiling(mod.DTYPES[dtype], grp, hd, 16, 8, cfg.kv_stride(16),
+                       cfg.out_stride(hd), mb, True, chunk=1)
+        if t.layout == "long":
+            return mb
+    raise AssertionError(f"no table up to 2,048 blocks takes the long-table "
+                         f"layout at grp {grp}, D {hd}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", sorted(B1_LONG))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("run", B1_LONG_RUNS)
+def test_paged_kernel_long_layout(regime, dtype, run):
+    """The long-table layout against the plain version on a decode step of
+    5 requests (a context of 1 token, of 16, a full table, a ragged one, an
+    idle slot): outputs within the bound, counts and bad planes equal. Each
+    SEU strikes request 2 (the full table), KV head 1, its last query head,
+    at an early, a middle or the last block in correct mode, a middle one in
+    detect mode."""
+    from repro_torch.kernels import efta_paged as mod
+    dev = cuda_or_skip()
+    grp, hd = B1_LONG[regime]
+    mb = _long_table(dtype, grp, hd)
+    args = _decode_case(dev, dtype, grp=grp, hd=hd, mb=mb,
+                        seed=131 + B1_LONG_RUNS.index(run))
+    mode = ("detect" if run.startswith("detect") else
+            "off" if run == "off" else "correct")
+    cfg = EFTAConfig(mode=mode, stride=128, block_kv=16)
+    window = 512 if run == "window" else None
+    k = args[1]
+    hkv, bs = k.shape[1], k.shape[2]
+    t = mod.kernel_tiling(mod.DTYPES[dtype], grp, hd, bs, 8,
+                          cfg.kv_stride(bs), cfg.out_stride(hd), mb, True,
+                          chunk=1)
+    assert t.layout == "long", t
+    fault = None
+    parts = run.split("_")
+    site = parts[1] if mode == "detect" else parts[0]
+    last = mb - 1
+    if site in Site.__members__:
+        j = {"early": 1, "mid": mb // 2, "last": last}.get(parts[-1], mb // 2)
+        fault = [int(Site[site]), j, 2, 1, grp - 1, 3,
+                 (30 if dtype == torch.float32 else 14)
+                 if mode == "correct" else 27, 1]
+    if "flip" in run:
+        i = 1 if run.startswith("k_") else 2
+        j = {"first": 0, "mid": mb // 2, "last": last}[parts[-1]]
+        pool = args[i].clone()
+        blk = int(args[5][2, j])
+        top = 30 if dtype == torch.float32 else 14
+        at = ((blk * hkv + 1) * bs + 2) * hd + 5
+        if i == 2:
+            tile = pool[blk, 1].float().abs().flatten()
+            at = (blk * hkv + 1) * bs * hd + int(torch.nonzero(tile >= 2)[0])
+        flip_bit_at(pool, at, top)
+        args[i] = pool
+    launches = mod.efta_paged_attention.launches_by_layout[("long", 1)]
+    got = efta_paged_attention(*args, cfg=cfg, fault=fault, window=window)
+    assert mod.efta_paged_attention.launches_by_layout[("long", 1)] == \
+        launches + 1
+    plain = efta_paged_attention_torch(*args, cfg=cfg, fault=fault,
+                                       window=window)
+    ref = to_np(plain.out.float())
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.where(fin, 0, to_np(got.out.float())),
+                                  np.where(fin, 0, ref))
+    bound = _bound(plain.out)
+    if dtype == torch.bfloat16:
+        bound = bound + _tile_slack(args, window,
+                                    fault if mode == "detect" else None)
+    diff = np.abs(to_np(got.out.float()) - ref)[fin]
+    assert (diff <= bound[fin]).all(), \
+        f"max |kernel - plain| {diff.max():.3e} over its bound"
+    np.testing.assert_array_equal(to_np(got.detected), to_np(plain.detected))
+    np.testing.assert_array_equal(to_np(got.bad_blocks),
+                                  to_np(plain.bad_blocks))
+    det = to_np(got.detected)
+    if run in ("clean", "off", "window"):
+        assert det.sum() == 0 and not to_np(got.bad_blocks).any()
+    elif "flip" in run:
+        assert to_np(got.bad_blocks)[2, j] and to_np(got.bad_blocks).sum() == 1
+    elif mode == "correct" and site in ("EXP", "ROWSUM") and \
+            parts[-1] == "last":
+        # (at an earlier block a flipped rowsum bit can shrink under the
+        # shadow's threshold by the end, in both versions alike)
+        assert det[2, :5].sum() >= 1, det
+
+
+@pytest.mark.cuda
+def test_paged_long_tiling_mirror_equals_the_kernels_rule():
+    """``efta_paged.tiling`` against the built kernel's rule at C 1 over
+    tables of 64 to 16,384 blocks (the decode layout up to its width, the
+    long-table layout past it), both dtypes, the engines' block and
+    strides and their neighbours."""
+    from repro_torch.kernels import efta_paged as mod
+    cuda_or_skip()
+    for code in (0, 1):
+        for R in (1, 4, 7, 8, 16, 20, 64):
+            for d in (16, 64, 112, 128, 256):
+                for bs, cs, skv in ((16, 8, 4), (16, 16, 4), (16, 8, 8),
+                                    (32, 8, 8)):
+                    for mb in (64, 128, 192, 256, 2048, 16384):
+                        for unified in (True, False):
+                            shapes = (code, R, d, bs, cs, skv,
+                                      EFTAConfig().out_stride(d), mb, unified)
+                            assert mod.tiling(*shapes, chunk=1) == \
+                                mod.kernel_tiling(*shapes, chunk=1), shapes

@@ -33,12 +33,12 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _make_case(seed, *, B, mb, bs, hkv, grp, hd, cs, C=None, fragment=True,
-               stale_scale=1.0):
-    """Random pool + fragmented tables + ragged lengths (numpy). Pool rows
-    past each request's valid prefix hold stale data scaled by
-    ``stale_scale``; the kernels must mask them out."""
+               stale_scale=1.0, min_len=1):
+    """Random pool + fragmented tables + ragged lengths of at least
+    ``min_len`` (numpy). Pool rows past each request's valid prefix hold
+    stale data scaled by ``stale_scale``; the kernels must mask them out."""
     rng = np.random.default_rng(seed)
-    per_req = [int(rng.integers(1, mb * bs + 1)) for _ in range(B)]
+    per_req = [int(rng.integers(min_len, mb * bs + 1)) for _ in range(B)]
     n_real = sum(-(-t // bs) for t in per_req)
     nb = n_real + 3
     ids = np.arange(1, nb + 1)
@@ -271,6 +271,25 @@ DECODE_RUNS = ["clean", "k_flip", "v_flip"] + [
     for at in ("mid", "last")]
 
 
+def _resident_flip(case, key, b, last, head):
+    """A copy of pool ``key`` ("pk" or "pv") with one element flipped in
+    the last valid row of request b's block ``last``, KV head ``head``:
+    bit 27 of the row's largest element under 2 in magnitude, set for 0.5
+    <= |x| < 2, so the flip scales it by 2^-16, far past the verify's
+    relative threshold. (A flip that grows a key by 2^16 makes scores of
+    ~1e5, whose GEMM I checks at their absolute threshold then count by the
+    order of f32 sums, which the two versions do not share.)"""
+    hkv, bs, hd = case["pk"].shape[1:]
+    pool = case[key].copy()
+    fill = int(case["lens"][b]) - last * bs
+    blk = int(case["bt"][b, last])
+    row = np.abs(pool[blk, head, fill - 1])
+    col = int(np.argmax(np.where(row < 2, row, 0)))
+    flat = ((blk * hkv + head) * bs + fill - 1) * hd + col
+    flip_bit_at(torch.from_numpy(pool), flat, 27)
+    return pool
+
+
 @pytest.mark.parametrize("shape", sorted(DECODE))
 @pytest.mark.parametrize("run", DECODE_RUNS)
 def test_decode_parity_per_site_and_block(shape, run):
@@ -285,22 +304,8 @@ def test_decode_parity_per_site_and_block(shape, run):
         j = last if at == "last" else last // 2
         kw["fault"] = [int(Site[site]), j, b, 1, grp - 1, 3, 27, 1]
     elif run != "clean":
-        hkv, bs, hd = case["pk"].shape[1:]
         key = "pk" if run == "k_flip" else "pv"
-        pool = case[key].copy()
-        fill = int(case["lens"][b]) - last * bs
-        blk = int(case["bt"][b, last])
-        # bit 27 of the row's largest element under 2 in magnitude: set for
-        # 0.5 <= |x| < 2, so the flip scales it by 2^-16, far past the
-        # verify's relative threshold. (A flip that grows a key by 2^16
-        # makes scores of ~1e5, whose GEMM I checks at their absolute
-        # threshold then count by the order of f32 sums, which the two
-        # versions do not share.)
-        row = np.abs(pool[blk, 1, fill - 1])
-        col = int(np.argmax(np.where(row < 2, row, 0)))
-        flat = ((blk * hkv + 1) * bs + fill - 1) * hd + col
-        flip_bit_at(torch.from_numpy(pool), flat, 27)
-        kw[key] = pool
+        kw[key] = _resident_flip(case, key, b, last, 1)
     ref, got = _run_both(case, stride=128, **kw)
     _assert_parity(ref, got)
     if run == "clean":
@@ -311,6 +316,44 @@ def test_decode_parity_per_site_and_block(shape, run):
     else:
         assert not got[2].any()
         if not run.startswith("ROWMAX"):   # may cancel analytically
+            assert got[1][b, :5].sum() >= 1, run
+
+
+# a 64-block table (on the card a 64-block table takes the long-table
+# layout only at gemma3's D 256 in f32; the decode layout holds the moe
+# heads in f32 up to 128 blocks, in bf16 wider), the plain version cut to
+# one KV head of 8 query heads at D 16, as the tests above are: two
+# requests whose contexts run past block 48. Each compute-site SEU strikes
+# the last query head of the longer request at its last block; a resident
+# flip strikes K or V there.
+LONG_RUNS = ["clean", "k_flip", "v_flip", "GEMM1", "EXP", "ROWMAX", "ROWSUM",
+             "GEMM2"]
+
+
+@pytest.mark.parametrize("run", LONG_RUNS)
+def test_long_table_parity_per_site(run):
+    case = _make_case(90 + LONG_RUNS.index(run), B=2, mb=64, bs=16, hkv=1,
+                      grp=8, hd=16, cs=8, stale_scale=50.0,
+                      min_len=48 * 16 + 1)
+    b = int(np.argmax(case["lens"]))
+    last = (int(case["lens"][b]) - 1) // 16
+    assert min(case["lens"]) > 48 * 16 and last >= 48
+    kw = {}
+    if run in ("k_flip", "v_flip"):
+        key = "pk" if run == "k_flip" else "pv"
+        kw[key] = _resident_flip(case, key, b, last, 0)
+    elif run != "clean":
+        kw["fault"] = [int(Site[run]), last, b, 0, 7, 3, 27, 1]
+    ref, got = _run_both(case, stride=128, **kw)
+    _assert_parity(ref, got)
+    if run == "clean":
+        assert got[1].sum() == 0 and not got[2].any()
+    elif run in ("k_flip", "v_flip"):
+        assert got[2][b, last] and got[2].sum() == 1
+        assert got[1][b, 5] == 1
+    else:
+        assert not got[2].any()
+        if run != "ROWMAX":   # may cancel analytically
             assert got[1][b, :5].sum() >= 1, run
 
 
